@@ -13,6 +13,8 @@ import enum
 import numpy as np
 import torch
 
+from pointcloud_depthfusion_tpu_torch.device import resolve_device
+
 
 class Distortion(enum.IntEnum):
     """Distortion model enumeration (RealSense model set)."""
@@ -58,6 +60,9 @@ class Intrinsics:
         coeffs=(0.0, 0.0, 0.0, 0.0, 0.0),
         device=None,
     ) -> "Intrinsics":
+        """Intrinsics on ``device`` (``None``: the card, see
+        :func:`~pointcloud_depthfusion_tpu_torch.device.resolve_device`)."""
+        device = resolve_device(device)
         return Intrinsics(
             ppx=_f32(ppx, device),
             ppy=_f32(ppy, device),
@@ -119,6 +124,7 @@ class Extrinsics:
 
     @staticmethod
     def identity(device=None) -> "Extrinsics":
+        device = resolve_device(device)
         return Extrinsics(
             torch.eye(3, dtype=torch.float32, device=device),
             torch.zeros(3, dtype=torch.float32, device=device),
@@ -126,6 +132,7 @@ class Extrinsics:
 
     @staticmethod
     def create(rotation, translation, device=None) -> "Extrinsics":
+        device = resolve_device(device)
         return Extrinsics(
             _f32(np.asarray(rotation, np.float32), device).reshape(3, 3),
             _f32(np.asarray(translation, np.float32), device).reshape(3),

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from pointcloud_depthfusion_tpu_torch.core.camera import Extrinsics, Intrinsics
+from pointcloud_depthfusion_tpu_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,13 +50,12 @@ class Frameset:
         pack_color: bool = False,
         device=None,
     ) -> "Frameset":
-        """Build a Frameset on ``device`` (default: the device of
-        ``color_intrinsics``) from numpy arrays or tensors.
+        """Build a Frameset on ``device`` (``None``: the card) from numpy
+        arrays or tensors.
 
         ``pack_color=True`` packs numpy color on the host and tensor color
         on its device."""
-        if device is None:
-            device = color_intrinsics.device
+        device = resolve_device(device)
         packed = None
         if pack_color and not isinstance(color, torch.Tensor):
             packed = torch.from_numpy(pack_rgb24_host(np.asarray(color))).to(device)

@@ -1,8 +1,9 @@
 """Dense camera geometry: deprojection, rigid transforms, SO(3) utilities.
 
-Port of the main-path subset of pointcloud_depthfusion_tpu/core/geometry.py.
-Every function keeps the JAX version's f32 operation order, so the
-per-pixel planes are bit-identical to it on the same inputs.
+Port of the fusion and registration subset of
+pointcloud_depthfusion_tpu/core/geometry.py. Every function keeps the JAX
+version's f32 operation order, so the per-pixel planes are bit-identical to
+it on the same inputs.
 """
 
 from __future__ import annotations
@@ -39,6 +40,29 @@ def _undistort_inverse_brown_conrady(x, y, coeffs):
     return ux, uy
 
 
+def deproject_pixels(u, v, depth: torch.Tensor, intrinsics: Intrinsics) -> torch.Tensor:
+    """Pixel coordinates + metric depth → (*shape, 3) points."""
+    x = (u - intrinsics.ppx) / intrinsics.fx
+    y = (v - intrinsics.ppy) / intrinsics.fy
+    if intrinsics.model == Distortion.INVERSE_BROWN_CONRADY:
+        x, y = _undistort_inverse_brown_conrady(x, y, intrinsics.coeffs)
+    return torch.stack([depth * x, depth * y, depth], dim=-1)
+
+
+def deproject(
+    depth_m: torch.Tensor,
+    intrinsics: Intrinsics,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense frame deprojection: (H, W, 3) f32 camera-frame points and the
+    (H, W) validity mask (``mask`` and depth > 0). Invalid points keep
+    z = 0 and are masked explicitly downstream."""
+    h, w = depth_m.shape
+    u, v = pixel_grid(h, w, depth_m.dtype, depth_m.device)
+    valid = depth_m > 0 if mask is None else mask & (depth_m > 0)
+    return deproject_pixels(u, v, depth_m, intrinsics), valid
+
+
 def deproject_planar(
     depth_m: torch.Tensor,
     intrinsics: Intrinsics,
@@ -68,6 +92,13 @@ def transform_planar(x, y, z, transform: torch.Tensor):
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Matrix product in full f32 (TF32 is off for this package)."""
     return torch.matmul(a, b)
+
+
+def transform_points(points: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
+    """Apply a 4×4 homogeneous transform to (..., 3) points."""
+    r = transform[:3, :3].to(points.dtype)
+    t = transform[:3, 3].to(points.dtype)
+    return mm(points, r.T) + t
 
 
 def quaternion_from_matrix(r: torch.Tensor) -> torch.Tensor:
@@ -157,6 +188,15 @@ def invert_rigid(transform: torch.Tensor) -> torch.Tensor:
     return make_transform(r.T, -mm(r.T, t))
 
 
+def extract_euler_angles(rotation: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix → (x, y, z) Euler angles, atan2/asin XYZ extraction
+    (Registration::extractEulerAngles, registration.cpp)."""
+    ea_x = torch.atan2(rotation[2, 1], rotation[2, 2])
+    ea_y = -torch.asin(torch.clamp(rotation[2, 0], -1.0, 1.0))
+    ea_z = torch.atan2(rotation[1, 0], rotation[0, 0])
+    return torch.stack([ea_x, ea_y, ea_z])
+
+
 def euler_to_matrix(angles: torch.Tensor) -> torch.Tensor:
     """(x, y, z) Euler angles -> R = Rx(ax) @ Ry(ay) @ Rz(az)
     (fusion_node.cpp:174-177)."""
@@ -196,7 +236,37 @@ def rotz(angle_rad, device=None) -> torch.Tensor:
     return m
 
 
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """SE(3) exponential map: twist (6,) [rho, phi] → 4×4 transform (the
+    Gauss-Newton update of the VGICP solver). No host sync: the small-angle
+    branch is selected on the device."""
+    rho, phi = xi[:3], xi[3:]
+    theta = torch.linalg.vector_norm(phi)
+    small = theta < 1e-8
+    safe = torch.where(small, 1.0, theta)
+    zero = torch.zeros_like(theta)
+    k = torch.stack([
+        torch.stack([zero, -phi[2], phi[1]]),
+        torch.stack([phi[2], zero, -phi[0]]),
+        torch.stack([-phi[1], phi[0], zero]),
+    ])
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
+    sin, cos = torch.sin(safe), torch.cos(safe)
+    a = torch.where(small, 1.0, sin / safe)
+    b = torch.where(small, 0.5, (1.0 - cos) / (safe * safe))
+    c = torch.where(small, 1.0 / 6.0, (safe - sin) / (safe ** 3))
+    kk = mm(k, k)
+    r = eye + a * k + b * kk
+    v = eye + b * k + c * kk
+    return make_transform(r, mm(v, rho))
+
+
 def deg2rad(deg):
     """Degrees to radians: a Python float stays a Python (f64) float, a
     tensor keeps its dtype."""
     return deg * (math.pi / 180.0)
+
+
+def rad2deg(rad):
+    """Radians to degrees, with the same dtype rule as :func:`deg2rad`."""
+    return rad * (180.0 / math.pi)

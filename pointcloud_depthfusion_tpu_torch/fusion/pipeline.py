@@ -20,6 +20,7 @@ import torch
 from pointcloud_depthfusion_tpu_torch.core import geometry as G
 from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics, fused_virtual_intrinsics
 from pointcloud_depthfusion_tpu_torch.core.frameset import Frameset
+from pointcloud_depthfusion_tpu_torch.device import resolve_device
 from pointcloud_depthfusion_tpu_torch.ops import filters as F
 from pointcloud_depthfusion_tpu_torch.ops import render as R
 
@@ -61,6 +62,8 @@ class FusionConfig:
         device=None,
         **static_fields,
     ) -> "FusionConfig":
+        device = resolve_device(device)
+
         def f32(v):
             return torch.tensor(v, dtype=torch.float32, device=device)
 
@@ -206,8 +209,8 @@ def fuse(
 
 
 class FusionPipeline:
-    """Holds config and intrinsics on one device; :meth:`process` fuses
-    each synchronized frame pair.
+    """Holds config and intrinsics on one device (``device=None``: the
+    card); :meth:`process` fuses each synchronized frame pair.
 
     The two virtual-camera poses depend only on the config and the
     registration transform, so they are computed when the transform is
@@ -222,9 +225,7 @@ class FusionPipeline:
         donate: bool = False,
         device=None,
     ):
-        if device is None:
-            device = color_intrinsics_left.device
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.config = config.to(self.device)
         self.fused_intrinsics = fused_virtual_intrinsics(
             color_intrinsics_left.to(self.device), config.vertical_image

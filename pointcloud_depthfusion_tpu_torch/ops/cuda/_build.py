@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-``csrc/*.cu`` is compiled by nvcc, at first use, for sm_90a (Hopper) into
-one shared library with a plain C interface, loaded with ctypes. The
+``csrc/*.cu`` is compiled by nvcc, at first use, for sm_90a (Hopper): one
+nvcc process per source, all started together, then one link into a shared
+library with a plain C interface, loaded with ctypes. The
 library lands in ``build/torch_kernels/<hash of sources and flags>/``
 beside the package, so a fresh checkout builds its kernels itself and a
 changed source never loads a stale library. No PyTorch headers are
@@ -29,9 +30,10 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -72,25 +74,32 @@ def _digest(srcs: List[pathlib.Path]) -> str:
     for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def _run_all(cmds: List[List[str]]) -> str:
+    """Run the commands side by side; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def _compile(nvcc: str, srcs: List[pathlib.Path], target: pathlib.Path) -> str:
     target.parent.mkdir(parents=True, exist_ok=True)
-    # Build to a private name, then rename: concurrent builders never load a
-    # half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
-    os.replace(tmp, target)
+    # Build in a private directory, then rename the library into place: a
+    # process building at the same time never loads a half-written one.
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(srcs, objs)])
+        lib = os.path.join(tmp, target.name)
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, target)
     return log
 
 
@@ -100,6 +109,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.zresolve_launch.restype = i
     lib.filter3x3_launch.argtypes = [p, p, i, i, i, p]
     lib.filter3x3_launch.restype = i
+    lib.segsum_launch.argtypes = [p, p, p, i, i, i, p, p, p]
+    lib.segsum_launch.restype = i
     return lib
 
 

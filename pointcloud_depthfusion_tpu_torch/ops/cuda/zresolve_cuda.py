@@ -7,6 +7,11 @@ pixel, the entry with the smallest z bits (signed i32) wins, ties go to the
 smaller rgb (signed i32); INT32_MAX where no entry landed. Entries whose
 pixel lies outside ``[0, n_px)`` are dropped.
 
+``zresolve_sorted_entries(legacy_feed=True)`` (the JAX package's (4, N)
+feed into its first resolve kernel, zresolve_pallas.py:417-453) computes
+the same contract, so it runs the same kernel; its launches are counted
+apart.
+
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel, or raises.
 """
@@ -25,7 +30,8 @@ INT32_MAX = 0x7FFFFFFF
 INVALID_PIX = 0x40000000
 
 #: Wrapper launches of the kernel, by wrapper name.
-launches = {"zresolve_winner_rgb": 0, "zresolve_sorted_entries": 0}
+launches = {"zresolve_winner_rgb": 0, "zresolve_sorted_entries": 0,
+            "zresolve_sorted_entries_legacy": 0}
 
 
 # -- plain versions ---------------------------------------------------------
@@ -64,7 +70,7 @@ def _lo(keys: torch.Tensor) -> torch.Tensor:
 def zresolve_sorted_entries_plain(
     pix: torch.Tensor, zbits: torch.Tensor, rgb: Optional[torch.Tensor], n_px: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`zresolve_sorted_entries`."""
+    """Plain version of :func:`zresolve_sorted_entries` (either feed)."""
     keys = _resolve_plain(pix, zbits, rgb, n_px)
     minz = _hi(keys)
     return (minz, minz) if rgb is None else (minz, _lo(keys))
@@ -111,11 +117,13 @@ def _launch(pix, zbits, rgb, n_px: int, minz, mrgb) -> None:
 
 
 def zresolve_sorted_entries(
-    pix: torch.Tensor, zbits: torch.Tensor, rgb: Optional[torch.Tensor], n_px: int
+    pix: torch.Tensor, zbits: torch.Tensor, rgb: Optional[torch.Tensor], n_px: int,
+    legacy_feed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel (min z bits, rgb of the winner), both (n_px,) int32 and
     INT32_MAX where empty. ``rgb=None`` resolves depth alone and returns
-    the min z bits twice."""
+    the min z bits twice. ``legacy_feed`` gives the same result through
+    the same kernel and counts under ``zresolve_sorted_entries_legacy``."""
     _check_entries(pix, zbits, rgb)
     if pix.device.type == "cpu":
         return zresolve_sorted_entries_plain(pix, zbits, rgb, n_px)
@@ -124,7 +132,7 @@ def zresolve_sorted_entries(
     minz = torch.empty(n_px, dtype=torch.int32, device=pix.device)
     mrgb = None if rgb is None else torch.empty_like(minz)
     _launch(pix, zbits, rgb, n_px, minz, mrgb)
-    launches["zresolve_sorted_entries"] += 1
+    launches["zresolve_sorted_entries_legacy" if legacy_feed else "zresolve_sorted_entries"] += 1
     return (minz, minz) if rgb is None else (minz, mrgb)
 
 

@@ -43,7 +43,7 @@ def _both_intrinsics(w, h, model=JC.Distortion.NONE, coeffs=(0.0,) * 5):
     kw = dict(fx=631.0 * w / 848.0, fy=629.5 * w / 848.0, ppx=w / 2 + 0.3, ppy=h / 2 - 0.7,
               model=model, coeffs=coeffs)
     return (JC.Intrinsics.create(w, h, dtype=jnp.float32, **kw),
-            TC.Intrinsics.create(w, h, **kw))
+            TC.Intrinsics.create(w, h, device="cpu", **kw))
 
 
 def _rot(axis, deg):
@@ -76,10 +76,10 @@ def test_extrinsics_column_major_and_matrix():
     rng = np.random.default_rng(3)
     r9, t3 = rng.normal(size=9), rng.normal(size=3)
     je = JC.Extrinsics.from_column_major_flat(r9, t3)
-    te = TC.Extrinsics.from_column_major_flat(r9, t3)
+    te = TC.Extrinsics.from_column_major_flat(r9, t3, device="cpu")
     np.testing.assert_array_equal(_np(te.rotation), np.asarray(je.rotation))
     np.testing.assert_array_equal(_np(te.as_matrix()), np.asarray(je.as_matrix()))
-    np.testing.assert_array_equal(_np(TC.Extrinsics.identity().as_matrix()),
+    np.testing.assert_array_equal(_np(TC.Extrinsics.identity("cpu").as_matrix()),
                                   np.asarray(JC.Extrinsics.identity().as_matrix()))
 
 
@@ -91,7 +91,7 @@ def test_camera_info_to_intrinsics(legacy, n_d):
     ji = JC.camera_info_to_intrinsics(JC.CameraInfo(848, 480, k, d),
                                       legacy_int_truncation=legacy)
     ti = TC.camera_info_to_intrinsics(TC.CameraInfo(848, 480, k, d),
-                                      legacy_int_truncation=legacy)
+                                      legacy_int_truncation=legacy, device="cpu")
     _same_intrinsics(ji, ti)
     info = TC.CameraInfo.from_intrinsics(ti)
     np.testing.assert_array_equal(info.k, JC.CameraInfo.from_intrinsics(ji).k)
@@ -100,7 +100,7 @@ def test_camera_info_to_intrinsics(legacy, n_d):
 def test_presets_and_d455_defaults():
     assert TC.CAMERA_MODEL_PRESETS == JC.CAMERA_MODEL_PRESETS
     for size in [(848, 480), (1280, 720)]:
-        _same_intrinsics(JC.d455_default_intrinsics(*size), TC.d455_default_intrinsics(*size))
+        _same_intrinsics(JC.d455_default_intrinsics(*size), TC.d455_default_intrinsics(*size, device="cpu"))
 
 
 # -- geometry: bit-exact planes ----------------------------------------------
@@ -202,7 +202,7 @@ def test_interpolate_transform_and_fused_pose(name):
     for kw in (dict(), dict(vertical_image=False),
                dict(set_camera_pose=True, camera_translation=(0.1, -0.2, 0.05),
                     camera_rotation_deg=(5.0, -12.0, 30.0))):
-        jc, tc = JP.FusionConfig.create(**kw), TP.FusionConfig.create(**kw)
+        jc, tc = JP.FusionConfig.create(**kw), TP.FusionConfig.create(device="cpu", **kw)
         np.testing.assert_allclose(
             TP.fused_camera_transform(tc, torch.from_numpy(m)).numpy(),
             np.asarray(JP.fused_camera_transform(jc, jnp.asarray(m))),
@@ -232,14 +232,15 @@ def test_frameset_create_and_packed_color():
     ji, ti = _both_intrinsics(16, 12)
     stamp = 1.7e9 + 123.456
     jf = JFS.Frameset.create(depth, color, ji, depth_scale=0.00025, timestamp=stamp, pack_color=True)
-    tf = TFS.Frameset.create(depth, color, ti, depth_scale=0.00025, timestamp=stamp, pack_color=True)
+    tf = TFS.Frameset.create(depth, color, ti, depth_scale=0.00025, timestamp=stamp, pack_color=True,
+                             device="cpu")
     np.testing.assert_array_equal(tf.depth.numpy(), np.asarray(jf.depth).astype(np.int32))
     np.testing.assert_array_equal(tf.color.numpy(), np.asarray(jf.color))
     np.testing.assert_array_equal(tf.color_packed.numpy(), np.asarray(jf.color_packed))
     for f in ("depth_scale", "timestamp", "timestamp_epoch"):
         assert float(getattr(tf, f)) == float(getattr(jf, f)), f
     on_device = TFS.Frameset.create(torch.from_numpy(depth.astype(np.int32)),
-                                    torch.from_numpy(color), ti, pack_color=True)
+                                    torch.from_numpy(color), ti, pack_color=True, device="cpu")
     np.testing.assert_array_equal(on_device.color_packed.numpy(), np.asarray(jf.color_packed))
     assert (TFS.absolute_stamp(float(tf.timestamp), float(tf.timestamp_epoch))
             == jf.to_host().timestamp)
@@ -277,10 +278,11 @@ def test_convert_from_jax_leaves():
     ji, _ = _both_intrinsics(160, 120, JC.Distortion.INVERSE_BROWN_CONRADY, COEFFS)
     ti = convert.intrinsics_from_arrays(
         *(np.asarray(getattr(ji, f)) for f in ("ppx", "ppy", "fx", "fy", "coeffs")),
-        ji.width, ji.height, ji.model)
+        ji.width, ji.height, ji.model, device="cpu")
     _same_intrinsics(ji, ti)
     je = JC.Extrinsics.create(_f32(ROTATIONS["mixed"][:3, :3]), [0.1, 0.2, 0.3])
-    te = convert.extrinsics_from_arrays(np.asarray(je.rotation), np.asarray(je.translation))
+    te = convert.extrinsics_from_arrays(np.asarray(je.rotation), np.asarray(je.translation),
+                                        device="cpu")
     np.testing.assert_array_equal(te.as_matrix().numpy(), np.asarray(je.as_matrix()))
     jc = JP.FusionConfig.create(min_depth=0.4, max_depth=2.5, roi_left=(1, 2, 3, 4),
                                 emit_zbuf=False)
@@ -288,7 +290,8 @@ def test_convert_from_jax_leaves():
               if f.metadata.get("static")}
     tc = convert.fusion_config_from_arrays(
         np.asarray(jc.min_depth), np.asarray(jc.max_depth),
-        np.asarray(jc.camera_translation), np.asarray(jc.camera_rotation_deg), **static)
+        np.asarray(jc.camera_translation), np.asarray(jc.camera_rotation_deg), device="cpu",
+        **static)
     assert (tc.roi_left, tc.emit_zbuf, float(tc.min_depth)) == ((1, 2, 3, 4), False, float(jc.min_depth))
     rng = np.random.default_rng(0)
     jf = JFS.Frameset.create(rng.integers(0, 5000, (6, 8)).astype(np.uint16),
@@ -298,10 +301,10 @@ def test_convert_from_jax_leaves():
     tf = convert.frameset_from_arrays(
         np.asarray(jf.depth), np.asarray(jf.color), ti, depth_scale=np.asarray(jf.depth_scale),
         timestamp=np.asarray(jf.timestamp), timestamp_epoch=np.asarray(jf.timestamp_epoch),
-        color_packed=np.asarray(jf.color_packed))
+        color_packed=np.asarray(jf.color_packed), device="cpu")
     assert (TFS.absolute_stamp(float(tf.timestamp), float(tf.timestamp_epoch))
             == jf.to_host().timestamp)
     np.testing.assert_array_equal(tf.depth.numpy(), np.asarray(jf.depth).astype(np.int32))
     np.testing.assert_array_equal(tf.color_packed.numpy(), np.asarray(jf.color_packed))
-    pose = convert.pose_from_array(np.eye(4))
+    pose = convert.pose_from_array(np.eye(4), device="cpu")
     assert pose.dtype == torch.float32 and pose.shape == (4, 4)

@@ -40,7 +40,7 @@ def _scene(w, h, toe_in=10.0, seeds=(0, 1)):
     """The bench scene of __graft_entry__._build_fusion at w×h."""
     fx = 631.0 * w / 848.0
     kw = dict(fx=fx, fy=fx, ppx=w / 2, ppy=h / 2)
-    ji, ti = JIntr.create(w, h, **kw), TIntr.create(w, h, **kw)
+    ji, ti = JIntr.create(w, h, **kw), TIntr.create(w, h, device="cpu", **kw)
     scene = SyntheticScene()
     wl, wr = two_camera_rig(baseline=0.6, toe_in_deg=toe_in)
     fl = scene.render(ti, wl, depth_noise_std=0.002, hole_fraction=0.01, seed=seeds[0])
@@ -52,8 +52,8 @@ def _scene(w, h, toe_in=10.0, seeds=(0, 1)):
 def _pair(ji, ti, fl, fr, pack=False):
     jl = JFrameset.create(fl.depth, fl.color, ji, pack_color=pack)
     jr = JFrameset.create(fr.depth, fr.color, ji, pack_color=pack)
-    tl = TFrameset.create(fl.depth, fl.color, ti, pack_color=pack)
-    tr = TFrameset.create(fr.depth, fr.color, ti, pack_color=pack)
+    tl = TFrameset.create(fl.depth, fl.color, ti, pack_color=pack, device="cpu")
+    tr = TFrameset.create(fr.depth, fr.color, ti, pack_color=pack, device="cpu")
     return jl, jr, tl, tr
 
 
@@ -84,7 +84,7 @@ def test_fuse_matches_jax_within_parity_budget(scene160):
     ji, ti, fl, fr, t_rl = scene160
     jl, jr, tl, tr = _pair(ji, ti, fl, fr)
     jc = JP.FusionConfig.create(vertical_image=True, mirror_image=True, render_mode="exact")
-    tc = TP.FusionConfig.create(vertical_image=True, mirror_image=True)
+    tc = TP.FusionConfig.create(device="cpu", vertical_image=True, mirror_image=True)
     want = _jax_fuse_jit(ji, jc)(jl, jr, jnp.asarray(t_rl), jc)
     got = TP.fuse(tl, tr, torch.from_numpy(t_rl), tc, t_fvi(ti, True))
     assert got.image.shape == (160, 120, 3) and got.image.dtype == torch.uint8
@@ -103,7 +103,7 @@ def test_render_given_jax_pose_is_bit_exact(scene160):
     ji, ti, fl, fr, t_rl = scene160
     jl, jr, tl, tr = _pair(ji, ti, fl, fr)
     jc = JP.FusionConfig.create(vertical_image=True, mirror_image=True, render_mode="exact")
-    tc = TP.FusionConfig.create(vertical_image=True, mirror_image=True)
+    tc = TP.FusionConfig.create(device="cpu", vertical_image=True, mirror_image=True)
     want = JP.fuse(jl, jr, jnp.asarray(t_rl), jc, j_fvi(ji, True))
     fused_t = JP.fused_camera_transform(jc, jnp.asarray(t_rl))
     right_total = JG.mm(fused_t, jnp.asarray(t_rl))
@@ -117,7 +117,7 @@ def test_fuse_matches_jax_tiled_pallas_interpreter():
     ji, ti, fl, fr, t_rl = _scene(64, 48)
     jl, jr, tl, tr = _pair(ji, ti, fl, fr)
     jc = JP.FusionConfig.create(vertical_image=True, mirror_image=True, render_mode="tiled")
-    tc = TP.FusionConfig.create(vertical_image=True, mirror_image=True)
+    tc = TP.FusionConfig.create(device="cpu", vertical_image=True, mirror_image=True)
     want = _jax_fuse_jit(ji, jc)(jl, jr, jnp.asarray(t_rl), jc)
     got = TP.fuse(tl, tr, torch.from_numpy(t_rl), tc, t_fvi(ti, True))
     fracs = _mismatch(want.image, want.zbuf, got.image, got.zbuf)
@@ -137,7 +137,7 @@ def test_pipeline_process_two_frames_and_transform_update(scene160):
     t_rl2[0, 3] += 0.01
     for median in (False, True):
         jc = JP.FusionConfig.create(render_mode="exact", use_median_filter=median)
-        tc = TP.FusionConfig.create(use_median_filter=median)
+        tc = TP.FusionConfig.create(device="cpu", use_median_filter=median)
         jpipe = JP.FusionPipeline(ji, jc)
         tpipe = TP.FusionPipeline(ti, tc, device="cpu")
         tfast = TP.FusionPipeline(ti, dataclasses.replace(tc, emit_zbuf=False), device="cpu")
@@ -162,9 +162,9 @@ def test_unported_modes_raise():
     fi = t_fvi(ti, True)
     t = torch.from_numpy(t_rl)
     with pytest.raises(ValueError, match="unknown render_mode"):
-        TP.fuse(tl, tr, t, TP.FusionConfig.create(render_mode="bogus"), fi)
+        TP.fuse(tl, tr, t, TP.FusionConfig.create(device="cpu", render_mode="bogus"), fi)
     for mode in ("exact", "indexed", "packed", "pallas"):
         with pytest.raises(NotImplementedError, match="A8"):
-            TP.fuse(tl, tr, t, TP.FusionConfig.create(render_mode=mode), fi)
+            TP.fuse(tl, tr, t, TP.FusionConfig.create(device="cpu", render_mode=mode), fi)
     with pytest.raises(NotImplementedError, match="A9"):
-        TP.fuse(tl, tr, t, TP.FusionConfig.create(align_frames=True), fi)
+        TP.fuse(tl, tr, t, TP.FusionConfig.create(device="cpu", align_frames=True), fi)

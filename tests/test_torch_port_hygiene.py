@@ -52,13 +52,14 @@ def test_cpu_pipeline_never_builds_kernels(monkeypatch):
     monkeypatch.setattr(_build, "load", _refuse_build)
     before = (dict(zresolve_cuda.launches), dict(filters_cuda.launches))
     rng = np.random.default_rng(0)
-    intr = Intrinsics.create(32, 24, fx=30.0, fy=30.0, ppx=16.0, ppy=12.0)
+    intr = Intrinsics.create(32, 24, fx=30.0, fy=30.0, ppx=16.0, ppy=12.0, device="cpu")
     fs = [Frameset.create(rng.integers(400, 3000, (24, 32)).astype(np.uint16),
-                          rng.integers(0, 256, (24, 32, 3)).astype(np.uint8), intr)
+                          rng.integers(0, 256, (24, 32, 3)).astype(np.uint8), intr,
+                          device="cpu")
           for _ in range(2)]
     for zbuf in (True, False):
         for median in (True, False):
-            cfg = FusionConfig.create(emit_zbuf=zbuf, use_median_filter=median)
+            cfg = FusionConfig.create(emit_zbuf=zbuf, use_median_filter=median, device="cpu")
             res = FusionPipeline(intr, cfg, device="cpu").process(*fs)
             assert res.image.shape == (32, 24, 3)
     assert (zresolve_cuda.launches, filters_cuda.launches) == before
@@ -88,8 +89,37 @@ def test_build_raises_with_compiler_output(monkeypatch, tmp_path):
 def test_build_flags_and_sources():
     import pointcloud_depthfusion_tpu_torch.core.geometry  # noqa: F401  (turns TF32 off)
 
-    assert [p.name for p in _build.sources()] == ["filters3x3.cu", "zresolve.cu"]
+    assert [p.name for p in _build.sources()] == ["filters3x3.cu", "segsum.cu", "zresolve.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
-    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+    assert "arch=compute_90a,code=sm_90a" in flags and "-fPIC" in flags
+    assert "-shared" in _build.LINK_FLAGS
     assert _build.BUILD_ROOT == REPO / "build" / "torch_kernels"
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_entry_points_default_to_the_card():
+    """``device=None`` means the card: without one every entry point raises
+    and names ``device='cpu'``; with one its tensors land on ``cuda``."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import Extrinsics, Intrinsics
+    from pointcloud_depthfusion_tpu_torch.core.frameset import Frameset
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, FusionPipeline
+    from pointcloud_depthfusion_tpu_torch.registration.pipeline import RegistrationPipeline
+    from pointcloud_depthfusion_tpu_torch.utils import convert
+
+    host = Intrinsics.create(8, 6, 5.0, 5.0, 4.0, 3.0, device="cpu")
+    depth, color = np.zeros((6, 8), np.uint16), np.zeros((6, 8, 3), np.uint8)
+    calls = {
+        "Intrinsics.create": lambda: Intrinsics.create(8, 6, 5.0, 5.0, 4.0, 3.0).fx,
+        "Extrinsics.identity": lambda: Extrinsics.identity().rotation,
+        "Frameset.create": lambda: Frameset.create(depth, color, host).depth,
+        "FusionConfig.create": lambda: FusionConfig.create().min_depth,
+        "FusionPipeline": lambda: FusionPipeline(host, FusionConfig.create(device="cpu")).right_transform,
+        "RegistrationPipeline": lambda: RegistrationPipeline(host, host).intr_left.fx,
+        "convert.pose_from_array": lambda: convert.pose_from_array(np.eye(4)),
+    }
+    for name, call in calls.items():
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda", name
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()

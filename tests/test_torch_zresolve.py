@@ -72,6 +72,21 @@ def test_sorted_entries_depth_only_bit_exact(case):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
+def test_sorted_entries_legacy_feed_bit_exact(case):
+    """B2-legacy: the JAX package's (4, N) feed through its first resolve
+    kernel; the port routes the flag to the one B2 kernel."""
+    seed, n, n_px, zr, neg = CASES[case]
+    pix, z, rgb = _entries(seed, n, n_px, zr, neg)
+    want_z, want_r = jax_sorted_entries(jnp.asarray(pix), jnp.asarray(z), jnp.asarray(rgb),
+                                        n_px, legacy_feed=True, **JAX_KW)
+    got_z, got_r = Z.zresolve_sorted_entries(_t(pix), _t(z), _t(rgb), n_px, legacy_feed=True)
+    np.testing.assert_array_equal(got_z.numpy(), np.asarray(want_z))
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+    same = Z.zresolve_sorted_entries(_t(pix), _t(z), _t(rgb), n_px)
+    assert all(torch.equal(a, b) for a, b in zip(same, (got_z, got_r)))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
 def test_winner_rgb_plain_bit_exact(case):
     seed, n, n_px, zr, neg = CASES[case]
     pix, z, rgb = _entries(seed, n, n_px, zr, neg)
@@ -96,6 +111,7 @@ def test_cpu_wrappers_use_plain_and_count_no_launch():
     pix, z, rgb = _entries(9, 600, 100, 50)
     Z.zresolve_winner_rgb(_t(pix), _t(z), _t(rgb), 100)
     Z.zresolve_sorted_entries(_t(pix), _t(z), None, 100)
+    Z.zresolve_sorted_entries(_t(pix), _t(z), _t(rgb), 100, legacy_feed=True)
     assert Z.launches == before
 
 
