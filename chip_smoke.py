@@ -12,7 +12,9 @@ before and read just after:
 
   [4-5] the dual-camera fused frame, ``FusionPipeline.process``;
   [8]   the registration service, ``RegistrationPipeline.tick``, with the
-        settings of configs/registration_default.yaml.
+        settings of configs/registration_default.yaml;
+  [11]  the fused frame in the other render modes (exact, indexed, packed,
+        pallas) and with depth→color alignment.
 
 It times frames, ticks and kernels with CUDA events and a host clock ending
 in ``synchronize()``, and profiles one warm tick. Any failure raises and
@@ -44,6 +46,10 @@ REPLACES = {
     "gauss3x3_plane": "pointcloud_depthfusion_tpu/ops/pallas/filters_pallas.py:69",
     "median3x3_plane": "pointcloud_depthfusion_tpu/ops/pallas/filters_pallas.py:41",
     "segsum_sorted": "pointcloud_depthfusion_tpu/ops/pallas/segsum_pallas.py:42",
+    "fuse_prep": "pointcloud_depthfusion_tpu/ops/pallas/fuse_prep_pallas.py:43",
+    # Not a Pallas kernel: the XLA scatter-min of the packed, indexed and
+    # pallas modes, which torch cannot compute on uint32 keys.
+    "scatter_min_u32": "pointcloud_depthfusion_tpu/ops/render.py:218",
 }
 SOURCES = {
     "zresolve_winner_rgb": "pointcloud_depthfusion_tpu_torch/csrc/zresolve.cu",
@@ -52,6 +58,8 @@ SOURCES = {
     "gauss3x3_plane": "pointcloud_depthfusion_tpu_torch/csrc/filters3x3.cu",
     "median3x3_plane": "pointcloud_depthfusion_tpu_torch/csrc/filters3x3.cu",
     "segsum_sorted": "pointcloud_depthfusion_tpu_torch/csrc/segsum.cu",
+    "fuse_prep": "pointcloud_depthfusion_tpu_torch/csrc/fuse_prep.cu",
+    "scatter_min_u32": "pointcloud_depthfusion_tpu_torch/csrc/zresolve.cu",
 }
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory and
 # the f32 rate outside the tensor cores, which bounds these kernels' integer
@@ -72,6 +80,17 @@ TRUTH_M, TRUTH_DEG = 0.02, 1.5
 GATE_TIE = 0.01
 REG_SIZES = ((848, 480), (1280, 720))
 REG_TICKS = 8
+# The quantizing modes' bars against the CPU (tpu_check.py:417-451):
+# coverage and z beyond two quantization steps on at most PIXEL_BUDGET of
+# pixels, color on at most COLOR_BUDGET; pallas against packed on the card
+# within PALLAS_VS_PACKED of pixels (tests/test_pallas_prep.py:94-95).
+COLOR_BUDGET = 1e-2
+PALLAS_VS_PACKED = 2e-3
+MODES = ("exact", "indexed", "packed", "pallas", "tiled+align")
+# A 1.5 cm depth→color baseline and a depth camera with 0.8× the color
+# focal length, for the aligned frames.
+ALIGN_T = (0.015, 0.0, 0.001)
+ALIGN_FOCAL = 0.8
 
 
 def log(msg: str) -> None:
@@ -113,18 +132,23 @@ def bound(n_bytes: float, n_ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def reset_launches() -> None:
-    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda, segsum_cuda, zresolve_cuda
+def _counters() -> tuple:
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import (
+        filters_cuda, fuse_prep_cuda, segsum_cuda, zresolve_cuda,
+    )
 
-    for counts in (zresolve_cuda.launches, filters_cuda.launches, segsum_cuda.launches):
+    return (zresolve_cuda.launches, filters_cuda.launches, segsum_cuda.launches,
+            fuse_prep_cuda.launches)
+
+
+def reset_launches() -> None:
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
 
 
 def read_launches() -> dict:
-    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda, segsum_cuda, zresolve_cuda
-
-    return {**zresolve_cuda.launches, **filters_cuda.launches, **segsum_cuda.launches}
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 # -- phase 2: resolve kernels ----------------------------------------------
@@ -247,17 +271,26 @@ def build_scene(w: int, h: int, n_pairs: int = 2) -> Scene:
     return Scene(w, h, frames, t_rl, (bump @ t_rl).astype(np.float32))
 
 
-def framesets(scene: Scene, device: str):
-    from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
+def framesets(scene: Scene, device: str, aligned: bool = False):
+    """(color intrinsics, [(left, right) Framesets]); ``aligned``: the depth
+    comes from a depth camera of its own (ALIGN_FOCAL, ALIGN_T), one
+    calibration shared by every frame."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import Extrinsics, Intrinsics
     from pointcloud_depthfusion_tpu_torch.core.frameset import Frameset
 
     fx = 631.0 * scene.w / 848.0
     intr = Intrinsics.create(scene.w, scene.h, fx=fx, fy=fx, ppx=scene.w / 2,
                              ppy=scene.h / 2, device=device)
-
+    calib = {}
+    if aligned:
+        calib = dict(
+            depth_intrinsics=Intrinsics.create(
+                scene.w, scene.h, fx=ALIGN_FOCAL * fx, fy=ALIGN_FOCAL * fx,
+                ppx=scene.w / 2 + 1.5, ppy=scene.h / 2 - 1.0, device=device),
+            depth_to_color=Extrinsics.create(np.eye(3), ALIGN_T, device=device))
     return intr, [
         tuple(Frameset.create(f.depth, f.color, intr, depth_scale=f.depth_scale,
-                              timestamp=f.timestamp, device=device) for f in pair)
+                              timestamp=f.timestamp, device=device, **calib) for f in pair)
         for pair in scene.frames
     ]
 
@@ -320,6 +353,188 @@ def drive_main_path(scene: Scene, n_frames: int, n_median: int, tag: str) -> dic
         "zresolve_winner_rgb": n_frames + n_median,
         "gauss3x3_plane": 3 * 2 * n_frames,
         "median3x3_plane": 3 * 2 * n_median,
+    }
+
+
+# -- phase 10: the fused prep (B3) and the u32 scatter-min --------------------
+
+
+def prep_inputs(scene: Scene, t_rl: np.ndarray, mirror: bool):
+    """B3's inputs for both cameras of the first frame pair of ``scene``
+    under the registration transform ``t_rl``: [(args for fuse_prep), ...]
+    and the fused pixel count."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import fused_virtual_intrinsics
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, fused_poses
+
+    intr, fs = framesets(scene, DEVICE)
+    cfg = FusionConfig.create(vertical_image=True, mirror_image=mirror, device=DEVICE)
+    fi = fused_virtual_intrinsics(intr, True)
+    poses = fused_poses(cfg, torch.as_tensor(t_rl, device=DEVICE))
+    z_near, z_far = 0.5 * cfg.min_depth, cfg.max_depth + 1.0
+    return [(f.depth, f.color, f.depth_scale, cfg.min_depth, cfg.max_depth, f.color_intrinsics,
+             pose, fi, mirror, z_near, z_far) for f, pose in zip(fs[0], poses)], fi.width * fi.height
+
+
+def pose_of(args) -> torch.Tensor:
+    """B3's pose parameters for one camera's ``prep_inputs`` arguments."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
+
+    _, _, _, lo, hi, _, pose, fi, _, z_near, z_far = args
+    return B3.pose_params(pose, fi, lo, hi, z_near, z_far, DEVICE)
+
+
+def phase_prep(scenes, errs: dict) -> None:
+    """B3 on both cameras, both registration transforms, mirror on and off,
+    and the scatter-min on their keys: bit-exact to the plain versions."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
+
+    for scene in scenes:
+        for t_rl in (scene.t_rl, scene.t_rl2):
+            for mirror in (False, True):
+                cams, n_px = prep_inputs(scene, t_rl, mirror)
+                got = [B3.fuse_prep(*a) for a in cams]
+                want = [B3.fuse_prep_plain(*a) for a in cams]
+                # As FusionPipeline launches it: with the pose parameters built once.
+                posed = [B3.fuse_prep(*a, pose=pose_of(a)) for a in cams]
+                idx = torch.cat([i.reshape(-1) for i, _ in got])
+                key = torch.cat([k.reshape(-1) for _, k in got])
+                buf = Z.scatter_min_u32(idx, key, n_px)
+                buf_plain = Z.scatter_min_u32_plain(idx, key, n_px)
+                torch.cuda.synchronize()
+                e_prep = max(max_abs_err(g, w) for gw in zip(got, want) for g, w in zip(*gw))
+                e_scatter = max_abs_err(buf, buf_plain)
+                exact = (all(torch.equal(g, w) for gw in zip(got, want) for g, w in zip(*gw))
+                         and all(torch.equal(g, w) for gw in zip(got, posed) for g, w in zip(*gw))
+                         and torch.equal(buf, buf_plain))
+                valid = float((key != -1).float().mean())
+                log(f"[10] fuse_prep dual {scene.w}x{scene.h} mirror={mirror} pose "
+                    f"{'t_rl' if t_rl is scene.t_rl else 't_rl2'}: B3 max_abs_err={e_prep} "
+                    f"scatter_min_u32 max_abs_err={e_scatter} bit-exact={exact} "
+                    f"valid keys={valid:.4f} covered={float((buf != -1).float().mean()):.4f}")
+                if not exact:
+                    raise AssertionError(f"B3 or scatter_min_u32 differs from plain at "
+                                         f"{scene.w}x{scene.h} mirror={mirror}")
+                errs["fuse_prep"] = max(errs["fuse_prep"], e_prep)
+                errs["scatter_min_u32"] = max(errs["scatter_min_u32"], e_scatter)
+
+
+def phase_align(scenes) -> None:
+    """The depth→color alignment alone (B2 on the card, its plain version on
+    the CPU) on every frame of the aligned framesets: the fraction of
+    aligned depth pixels that differ, within PIXEL_BUDGET."""
+    from pointcloud_depthfusion_tpu_torch.ops.align import align_depth_to_color
+
+    for scene in scenes:
+        (_, fs_g), (_, fs_c) = framesets(scene, DEVICE, True), framesets(scene, "cpu", True)
+        for k, (pair_g, pair_c) in enumerate(zip(fs_g, fs_c)):
+            for side, g, c in zip(("left", "right"), pair_g, pair_c):
+                a_g, a_c = (align_depth_to_color(f.depth, f.depth_scale, f.depth_intrinsics,
+                                                 f.color_intrinsics, f.depth_to_color, "auto")
+                            for f in (g, c))
+                torch.cuda.synchronize()
+                frac = float((a_g.cpu() != a_c).float().mean())
+                log(f"[10] align dual {scene.w}x{scene.h} pair {k} {side}: aligned depth card vs "
+                    f"CPU differs on {frac:.6g} of pixels; nonzero {float((a_c > 0).float().mean()):.4f}")
+                if frac > PIXEL_BUDGET:
+                    raise AssertionError(f"align card vs CPU {frac} > {PIXEL_BUDGET}")
+
+
+# -- phase 11: the other render modes and alignment ---------------------------
+
+
+def mode_config(mode: str, **kw):
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
+
+    render = "tiled" if mode == "tiled+align" else mode
+    return FusionConfig.create(vertical_image=True, mirror_image=True, render_mode=render,
+                               align_frames=mode == "tiled+align", **kw)
+
+
+def qstep(mode: str, n_pts: int) -> float:
+    """One depth quantization step at the default window (z_near 0.25 m,
+    z_far 4 m): 14 bits, or what the indexed key leaves of 32."""
+    bits = 14 if mode != "indexed" else 32 - max(1, n_pts.bit_length())
+    return 3.75 / ((1 << bits) - 1)
+
+
+def envelope(gpu, cpu, step: float) -> tuple:
+    """(coverage, z beyond two steps, color) mismatch fractions
+    (tpu_check.py:417-451)."""
+    zg, zc = gpu.zbuf.cpu().numpy(), cpu.zbuf.numpy()
+    cg, cc = zg != ZMAX, zc != ZMAX
+    both = cg & cc
+    z_bad = float((np.abs(zg[both] - zc[both]) > 2 * step).mean()) if both.any() else 0.0
+    color = float((gpu.image.cpu() != cpu.image).any(-1).float().mean())
+    return float((cg != cc).mean()), z_bad, color
+
+
+def drive_modes(scene: Scene, n_frames: int, tag: str) -> dict:
+    """``n_frames`` frames of each mode of MODES through
+    FusionPipeline.process on the card and on the CPU, with a registration
+    update halfway; the exact frames also run tiled on the card. Returns the
+    expected launch counts."""
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionPipeline
+
+    sets = {aligned: (framesets(scene, DEVICE, aligned), framesets(scene, "cpu", aligned))
+            for aligned in (False, True)}
+    n_pts = 2 * scene.w * scene.h
+    packed_images = {}
+    for mode in MODES:
+        (intr_g, fs_g), (intr_c, fs_c) = sets[mode == "tiled+align"]
+        gpu = FusionPipeline(intr_g, mode_config(mode, device=DEVICE), device=DEVICE)
+        cpu = FusionPipeline(intr_c, mode_config(mode, device="cpu"), device="cpu")
+        tiled = FusionPipeline(intr_g, mode_config("tiled", device=DEVICE), device=DEVICE)
+        worst = [0.0, 0.0, 0.0]
+        for k in range(n_frames):
+            t = scene.t_rl if k < n_frames // 2 else scene.t_rl2
+            for p in (gpu, cpu, tiled):
+                p.set_right_transform(t)
+            (gl, gr), (cl, cr) = fs_g[k % len(fs_g)], fs_c[k % len(fs_c)]
+            rg = gpu.process(gl, gr)
+            rc = cpu.process(cl, cr)
+            rt = tiled.process(gl, gr) if mode == "exact" else None
+            torch.cuda.synchronize()
+            if rg.image.shape != (scene.w, scene.h, 3) or rg.zbuf.shape != (scene.w, scene.h):
+                raise AssertionError(f"{mode}: image {tuple(rg.image.shape)}")
+            zb = rg.zbuf[rg.zbuf < ZMAX]
+            coverage = zb.numel() / rg.zbuf.numel()
+            if coverage < 0.5 or not bool(torch.isfinite(zb).all()) or not bool((zb > 0).all()):
+                raise AssertionError(f"{tag} {mode} frame {k}: coverage {coverage} or bad depths")
+            extra = ""
+            if mode in ("exact", "tiled+align"):
+                fr = mismatch(rg, rc)[:3]
+                ok = max(fr) <= PIXEL_BUDGET
+                names = ("image", "coverage", "z_outside_ulp")
+                if rt is not None:
+                    same = torch.equal(rt.image, rg.image) and torch.equal(rt.zbuf, rg.zbuf)
+                    extra = f"; bit-identical to tiled on the card: {same}"
+                    ok &= same
+            else:
+                fr = envelope(rg, rc, qstep(mode, n_pts))
+                ok = fr[0] <= PIXEL_BUDGET and fr[1] <= PIXEL_BUDGET and fr[2] <= COLOR_BUDGET
+                names = ("coverage", "z_beyond_2_steps", "color")
+                if mode == "packed":
+                    packed_images[k] = rg.image
+                if mode == "pallas":
+                    vs = float((packed_images[k] != rg.image).any(-1).float().mean())
+                    extra = f"; image vs packed on the card {vs:.6g} (bar {PALLAS_VS_PACKED})"
+                    ok &= vs <= PALLAS_VS_PACKED
+            worst = [max(a, b) for a, b in zip(worst, fr)]
+            log(f"[11 {tag}] {mode} frame {k}: coverage={coverage:.4f} vs CPU: "
+                + " ".join(f"{n}={v:.6g}" for n, v in zip(names, fr)) + extra)
+            if not ok:
+                raise AssertionError(f"{tag} {mode} frame {k}: card vs CPU {fr}{extra}")
+        log(f"[11 {tag}] {mode} worst vs CPU: "
+            + " ".join(f"{n}={v:.6g}" for n, v in zip(names, worst)))
+    n = n_frames
+    return {
+        # exact: B2, and B2 again in its tiled twin; tiled+align: two B2
+        # aligns and the tiled resolve.
+        "zresolve_sorted_entries": 2 * n + 3 * n,
+        "scatter_min_u32": 3 * n,
+        "fuse_prep": 2 * n,
+        "gauss3x3_plane": 3 * (len(MODES) + 1) * n,
     }
 
 
@@ -400,6 +615,86 @@ def time_kernels(card: str) -> dict:
         k, p, each = turns(kernel, plain)
         out[name] = (k, p, lib_ms, b_ms, b_by)
         shape = "848x480 u8 plane" if "plane" in name else f"N={n} n_px={n_px}"
+        log(f"[6] {name} at {shape}: kernel {k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}), "
+            f"plain {p:.5f} ms ({each[2]:.5f}, {each[3]:.5f}), library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms (scatter_reduce_ amin)'}, "
+            f"bound {b_ms:.5f} ms by {b_by} on {card}")
+    return out
+
+
+def time_modes(scene: Scene, card: str, warmup: int = 3, iters: int = 20) -> dict:
+    """ms/frame of each mode of MODES (with the z-buffer, as every one of
+    them but tiled always emits it)."""
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionPipeline
+
+    out = {}
+    for mode in MODES:
+        intr, fs = framesets(scene, DEVICE, aligned=mode == "tiled+align")
+        pipe = FusionPipeline(intr, mode_config(mode, device=DEVICE), device=DEVICE)
+        pipe.set_right_transform(scene.t_rl)
+        left, right = fs[0]
+        t0 = time.perf_counter()
+        ms = cuda_ms(lambda: pipe.process(left, right), iters, warmup)
+        host_ms = (time.perf_counter() - t0) * 1e3 / (iters + warmup)
+        key = f"dual_{scene.w}x{scene.h}_{mode}"
+        out[key] = ms
+        log(f"[6] process {key}: {ms:.4f} ms/frame (CUDA events, {iters} frames after "
+            f"{warmup} warm-up; host wall incl. warm-up {host_ms:.4f} ms/frame) on {card}")
+    return out
+
+
+def time_prep_kernels(scene: Scene, card: str) -> dict:
+    """B3 on one camera and the scatter-min over both cameras' keys of the
+    ``scene``'s first frame pair: {name: (ms, plain_ms, library_ms or None,
+    bound_ms, bound_by)}."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import _build
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
+
+    cams, n_px = prep_inputs(scene, scene.t_rl, True)
+    preps = [B3.fuse_prep(*a) for a in cams]
+    idx = torch.cat([i.reshape(-1) for i, _ in preps])
+    key = torch.cat([k.reshape(-1) for _, k in preps])
+    n_cam, n = scene.w * scene.h, idx.numel()
+    # The library's scatter-min: one scatter_reduce_(amin) of prebuilt int64
+    # key values into a dump-slotted buffer.
+    slot = torch.where((idx >= 0) & (idx < n_px), idx, n_px).to(torch.int64)
+    key64 = Z.u32_value(key)
+    buf = torch.full((n_px + 1,), 0xFFFFFFFF, dtype=torch.int64, device=DEVICE)
+    library = cuda_ms(lambda: buf.scatter_reduce_(0, slot, key64, "amin", include_self=True), 20)
+    pose = pose_of(cams[0])
+    pairs = {
+        # One camera, launched as FusionPipeline launches it (pose parameters
+        # built once): 4 B depth + 3 B color in, 4 B index + 4 B key out per
+        # pixel; about 45 f32 and 25 integer operations per pixel.
+        "fuse_prep": (lambda: B3.fuse_prep(*cams[0], pose=pose),
+                      lambda: B3.fuse_prep_plain(*cams[0], pose=pose),
+                      None, bound(15 * n_cam, 70 * n_cam)),
+        # 8 B in per entry, 4 B out per pixel; a compare and an atomic per
+        # entry.
+        "scatter_min_u32": (lambda: Z.scatter_min_u32(idx, key, n_px),
+                            lambda: Z.scatter_min_u32_plain(idx, key, n_px),
+                            library, bound(8 * n + 4 * n_px, 2 * n)),
+    }
+    # What B3's wrapper spends around its launch: gathering the frame's
+    # camera parameters onto the prebuilt pose ones, against the bare launch
+    # on prebuilt parameters and outputs.
+    params = B3.prep_params(*cams[0][2:8], *cams[0][9:11], DEVICE, pose)
+    params_ms = cuda_ms(lambda: B3.prep_params(*cams[0][2:8], *cams[0][9:11], DEVICE, pose), 20)
+    depth, color, fi = cams[0][0], cams[0][1], cams[0][7]
+    out_idx, out_key = torch.empty_like(depth), torch.empty_like(depth)
+    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
+    bare_ms = cuda_ms(lambda: lib.fuse_prep_launch(
+        depth.data_ptr(), color.data_ptr(), params.data_ptr(), scene.h, scene.w, fi.width,
+        fi.height, 1, out_idx.data_ptr(), out_key.data_ptr(), stream), 50)
+    log(f"[6] fuse_prep at one {scene.w}x{scene.h} camera: the camera parameter gather "
+        f"(one torch.stack, one torch.cat) {params_ms:.5f} ms, the bare launch {bare_ms:.5f} ms on {card}")
+    out = {}
+    for name, (kernel, plain, lib_ms, (b_ms, b_by)) in pairs.items():
+        k, p, each = turns(kernel, plain)
+        out[name] = (k, p, lib_ms, b_ms, b_by)
+        shape = (f"one {scene.w}x{scene.h} camera" if name == "fuse_prep"
+                 else f"N={n} n_px={n_px}")
         log(f"[6] {name} at {shape}: kernel {k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}), "
             f"plain {p:.5f} ms ({each[2]:.5f}, {each[3]:.5f}), library "
             f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms (scatter_reduce_ amin)'}, "
@@ -685,13 +980,15 @@ def main() -> int:
             log(f"[1] ptxas: {line.strip()}")
 
     errs = {name: 0 for name in REPLACES}
-    # [2], [3] kernels against their plain versions
+    # [2], [3], [10] kernels against their plain versions
     phase_resolve(errs)
     phase_filters(errs)
-
-    # [4], [5] the fused frame; the launch counts cover exactly these phases.
     scene_848 = build_scene(848, 480)
     scene_720 = build_scene(1280, 720)
+    phase_prep((scene_848, scene_720), errs)
+    phase_align((scene_848, scene_720))
+
+    # [4], [5] the fused frame; the launch counts cover exactly these phases.
     reset_launches()
     expected = {k: 0 for k in read_launches()}
     for scene, n_frames, n_median, tag in ((scene_848, 10, 2, "4: dual 848x480"),
@@ -703,6 +1000,19 @@ def main() -> int:
     log(f"[4-5] launches {fusion_launches}, expected {expected}")
     if fusion_launches != expected:
         raise AssertionError(f"launch counts {fusion_launches} != expected {expected}")
+
+    # [11] the other render modes and alignment; the launch counts cover
+    # exactly this phase.
+    reset_launches()
+    expected = {k: 0 for k in read_launches()}
+    for scene, n_frames, tag in ((scene_848, 2, "dual 848x480"), (scene_720, 2, "dual 1280x720")):
+        for k, v in drive_modes(scene, n_frames, tag).items():
+            expected[k] += v
+    torch.cuda.synchronize()
+    mode_launches = read_launches()
+    log(f"[11] launches {mode_launches}, expected {expected}")
+    if mode_launches != expected:
+        raise AssertionError(f"launch counts {mode_launches} != expected {expected}")
 
     # [7] B5 against its plain version on the registration clouds
     reg_scenes = [s for s in (scene_848, scene_720) if (s.w, s.h) in REG_SIZES]
@@ -730,8 +1040,10 @@ def main() -> int:
         raise AssertionError(f"launch counts {reg_launches} != expected {expected}")
 
     # [6], [9] timing
-    frame_ms = {**time_pipeline(scene_848, card), **time_pipeline(scene_720, card)}
-    kernel_ms = time_kernels(card)
+    frame_ms = {**time_pipeline(scene_848, card), **time_pipeline(scene_720, card),
+                **time_modes(scene_848, card), **time_modes(scene_720, card)}
+    kernel_ms = {**time_kernels(card), **time_prep_kernels(scene_848, card)}
+    time_prep_kernels(scene_720, card)
     log(f"[6] summary ms/frame {json.dumps(frame_ms)} on {card}")
     tick_ms = {}
     for tag, (scene, pipe, host_ms) in timed.items():
@@ -746,7 +1058,7 @@ def main() -> int:
     log(f"[9] summary ms/tick {json.dumps(tick_ms)} on {card}")
     k, p, _, b_ms, b_by = seg[f"dual {reg_scenes[-1].w}x{reg_scenes[-1].h} cloud at 0.01 m"]
 
-    launches = {**fusion_launches, "segsum_sorted": reg_launches["segsum_sorted"]}
+    launches = {k: fusion_launches[k] + mode_launches[k] + reg_launches[k] for k in fusion_launches}
     # No one PyTorch call computes both halves of B5 (the sums and the
     # representative); index_add_'s time for the sums alone is logged above.
     timing = {**kernel_ms, "segsum_sorted": (k, p, None, b_ms, b_by)}

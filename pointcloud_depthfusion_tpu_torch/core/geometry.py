@@ -89,6 +89,34 @@ def transform_planar(x, y, z, transform: torch.Tensor):
     return xo, yo, zo
 
 
+def project_points(points: torch.Tensor, intrinsics: Intrinsics) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., 3) points → continuous pixel coordinates (image_x, image_y).
+
+    Pinhole by division ``x / safe_z`` (kernels.cu:247-248), then the
+    modified Brown-Conrady or f-theta forward model when the intrinsics
+    ask for one (kernels.cu:92-116)."""
+    z = points[..., 2]
+    safe_z = torch.where(z == 0, 1.0, z)
+    x = points[..., 0] / safe_z
+    y = points[..., 1] / safe_z
+    if intrinsics.model == Distortion.MODIFIED_BROWN_CONRADY:
+        c = intrinsics.coeffs
+        r2 = x * x + y * y
+        f = 1.0 + c[0] * r2 + c[1] * r2 * r2 + c[4] * r2 * r2 * r2
+        xf = x * f
+        yf = y * f
+        x = xf + 2.0 * c[2] * xf * yf + c[3] * (r2 + 2.0 * xf * xf)
+        y = yf + 2.0 * c[3] * xf * yf + c[2] * (r2 + 2.0 * yf * yf)
+    elif intrinsics.model == Distortion.FTHETA:
+        c0 = intrinsics.coeffs[0]
+        r = torch.sqrt(x * x + y * y)
+        safe_r = torch.where(r == 0, 1.0, r)
+        rd = (1.0 / c0) * torch.arctan(2.0 * r * torch.tan(c0 / 2.0))
+        x = x * rd / safe_r
+        y = y * rd / safe_r
+    return x * intrinsics.fx + intrinsics.ppx, y * intrinsics.fy + intrinsics.ppy
+
+
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Matrix product in full f32 (TF32 is off for this package)."""
     return torch.matmul(a, b)
@@ -99,6 +127,12 @@ def transform_points(points: torch.Tensor, transform: torch.Tensor) -> torch.Ten
     r = transform[:3, :3].to(points.dtype)
     t = transform[:3, 3].to(points.dtype)
     return mm(points, r.T) + t
+
+
+def transform_extrinsic(points: torch.Tensor, rotation: torch.Tensor,
+                        translation: torch.Tensor) -> torch.Tensor:
+    """Apply an Extrinsics-style transform: ``rotation @ p + translation``."""
+    return mm(points, rotation.to(points.dtype).T) + translation.to(points.dtype)
 
 
 def quaternion_from_matrix(r: torch.Tensor) -> torch.Tensor:

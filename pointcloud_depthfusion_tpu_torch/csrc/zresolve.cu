@@ -81,3 +81,46 @@ extern "C" int zresolve_launch(const int* pix, const int* zbits, const int* rgb,
   decode_keys<<<blocks_for(n_px), kThreads, 0, s>>>(keys, n_px, minz, mrgb);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Per-slot unsigned 32-bit minimum: the packed, indexed and pallas render
+// modes' `buf.at[idx].min(key, mode="drop")` (an XLA scatter in the JAX
+// package, pointcloud_depthfusion_tpu/ops/render.py:218, :286 and
+// fusion/pipeline.py:358; no Pallas kernel). Keys arrive as the bit
+// patterns of i32 tensors. One 32-bit atomicMin per entry; order-free, so
+// deterministic. Bound: 8 B read per entry, 4 B written per slot.
+namespace {
+
+__global__ void fill_u32(unsigned int* out, int n_slots) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_slots;
+       i += gridDim.x * blockDim.x) {
+    out[i] = 0xFFFFFFFFu;
+  }
+}
+
+__global__ void scatter_min_u32_kernel(const int* __restrict__ idx,
+                                       const unsigned int* __restrict__ key,
+                                       int n, unsigned int* out, int n_slots) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const int p = idx[i];
+    if (p < 0 || p >= n_slots) continue;
+    atomicMin(out + p, key[i]);
+  }
+}
+
+}  // namespace
+
+// idx: (n,) i32 slot, dropped outside [0, n_slots). key: (n,) u32 bits.
+// out: (n_slots,) u32, 0xFFFFFFFF where no entry landed. Launches on
+// `stream`; returns cudaGetLastError().
+extern "C" int scatter_min_u32_launch(const int* idx, const unsigned int* key,
+                                      int n, unsigned int* out, int n_slots,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fill_u32<<<blocks_for(n_slots), kThreads, 0, s>>>(out, n_slots);
+  if (n > 0) {
+    scatter_min_u32_kernel<<<blocks_for(n), kThreads, 0, s>>>(idx, key, n, out,
+                                                              n_slots);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -3,11 +3,14 @@
 Port of pointcloud_depthfusion_tpu/fusion/pipeline.py (the reference's
 FusionNode::processSyncedFrames, fusion_node.cpp:700-811), run eagerly:
 
-    filter → deproject ×2 → transform (right composed with the virtual
-    pose) → merge → project → z-resolve (B1/B2) → decode → color filter (B4)
+    [align (B2)] → filter → deproject ×2 → transform (right composed with
+    the virtual pose) → merge → project → z-resolve → decode → color
+    filter (B4)
 
-Only ``render_mode="tiled"`` is ported; the other modes raise (ROADMAP A8),
-and so does ``align_frames=True`` (ROADMAP A9).
+Every render mode of the JAX package: "tiled" and "exact" resolve on B1/B2,
+"packed" and "indexed" on one u32 scatter-min, and "pallas" runs the
+per-pixel prep as kernel B3 (ops/cuda/fuse_prep_cuda.py) before the same
+scatter-min as "packed".
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ from pointcloud_depthfusion_tpu_torch.core.frameset import Frameset
 from pointcloud_depthfusion_tpu_torch.device import resolve_device
 from pointcloud_depthfusion_tpu_torch.ops import filters as F
 from pointcloud_depthfusion_tpu_torch.ops import render as R
+from pointcloud_depthfusion_tpu_torch.ops.align import align_depth_to_color, auto_footprint
+from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda
+from pointcloud_depthfusion_tpu_torch.ops.cuda.fuse_prep_cuda import fuse_prep, pose_params
 
 RENDER_MODES = ("tiled", "exact", "indexed", "packed", "pallas")
 
@@ -130,23 +136,29 @@ def fused_poses(config: FusionConfig, right_transform: torch.Tensor):
     return fused_t, G.mm(fused_t, right_transform.to(fused_t.dtype))
 
 
+def _z_range(config: FusionConfig):
+    """The packed and indexed quantization range: the virtual camera sits
+    between the two physical ones, so depths stay within ~[min/2, max+1]."""
+    return 0.5 * config.min_depth, config.max_depth + 1.0
+
+
 def _check_config(config: FusionConfig) -> None:
     if config.render_mode not in RENDER_MODES:
         raise ValueError(
             f"unknown render_mode {config.render_mode!r} (expected tiled/"
             "exact/indexed/packed/pallas)"
         )
-    if config.render_mode != "tiled":
-        raise NotImplementedError(
-            f"render_mode={config.render_mode!r} is not ported yet (ROADMAP A8)"
-        )
+
+
+def _prepare_camera(fs: Frameset, roi, config: FusionConfig, footprint):
+    """Per-camera stage: [align] → filter → deproject (planar). Returns
+    (x, y, z, valid) planes."""
+    depth = fs.depth
     if config.align_frames:
-        raise NotImplementedError("align_frames=True is not ported yet (ROADMAP A9)")
-
-
-def _prepare_camera(fs: Frameset, roi, config: FusionConfig):
-    """Per-camera stage: filter → deproject (planar)."""
-    depth, valid = F.filter_depth(fs.depth, fs.depth_scale, config.min_depth, config.max_depth, roi)
+        depth = align_depth_to_color(depth, fs.depth_scale, fs.depth_intrinsics,
+                                     fs.color_intrinsics, fs.depth_to_color,
+                                     max_footprint=footprint)
+    depth, valid = F.filter_depth(depth, fs.depth_scale, config.min_depth, config.max_depth, roi)
     depth_m = depth.to(torch.float32) * fs.depth_scale
     return G.deproject_planar(depth_m, fs.color_intrinsics, valid)
 
@@ -158,12 +170,22 @@ def fuse_posed(
     right_total: torch.Tensor,
     config: FusionConfig,
     fused_intrinsics: Intrinsics,
+    footprints=None,
+    prep_poses=None,
 ) -> FusionResult:
     """:func:`fuse` with the two virtual-camera poses given (see
-    :func:`fused_poses`)."""
+    :func:`fused_poses`). ``footprints``: the (left, right) align splat
+    caps, resolved by the caller; ``None`` takes ``config.align_footprint``
+    for both. ``prep_poses``: the pallas mode's (left, right)
+    ``fuse_prep_cuda.pose_params`` of the two poses, built by the caller;
+    ``None`` builds them."""
     _check_config(config)
-    xl, yl, zl, val_l = _prepare_camera(left, config.roi_left, config)
-    xr, yr, zr, val_r = _prepare_camera(right, config.roi_right, config)
+    if config.render_mode == "pallas":
+        return _fuse_pallas(left, right, fused_t, right_total, config, fused_intrinsics,
+                            prep_poses)
+    foot_l, foot_r = footprints or (config.align_footprint,) * 2
+    xl, yl, zl, val_l = _prepare_camera(left, config.roi_left, config, foot_l)
+    xr, yr, zr, val_r = _prepare_camera(right, config.roi_right, config, foot_r)
     xl, yl, zl = G.transform_planar(xl, yl, zl, fused_t)
     xr, yr, zr = G.transform_planar(xr, yr, zr, right_total)
 
@@ -175,15 +197,74 @@ def fuse_posed(
         rgb24 = torch.stack([left.color_packed, right.color_packed])
     else:
         rgb24 = R.pack_rgb(torch.stack([left.color, right.color]))
-    (rp, gp, bp), zbuf = R.project_zbuffer_tiled_planar(
-        x, y, z, None, None, None, val, fused_intrinsics,
-        mirror=config.mirror_image, return_planes=True,
-        need_zbuf=config.emit_zbuf, rgb24=rgb24,
-    )
+    w_f, h_f = fused_intrinsics.width, fused_intrinsics.height
+    z_near, z_far = _z_range(config)
+    mirror = config.mirror_image
+    planes = None
+    if config.render_mode == "packed":
+        planes, zbuf = R.project_zbuffer_packed_planar(
+            x, y, z, None, None, None, val, fused_intrinsics, mirror=mirror,
+            z_near=z_near, z_far=z_far, return_planes=True, rgb24=rgb24,
+        )
+    elif config.render_mode == "indexed":
+        covered, widx = R.indexed_winner_planar(
+            x, y, z, val, fused_intrinsics, mirror=mirror, z_near=z_near, z_far=z_far,
+        )
+        rp, gp, bp, zb = R.indexed_winner_gather(covered, widx, z, None, None, None, rgb24=rgb24)
+        planes = tuple(p.reshape(h_f, w_f) for p in (rp, gp, bp))
+        zbuf = zb.reshape(h_f, w_f)
+    else:  # tiled and exact share one winner contract; exact always emits the z-buffer
+        planes, zbuf = R.project_zbuffer_tiled_planar(
+            x, y, z, None, None, None, val, fused_intrinsics, mirror=mirror,
+            return_planes=True, need_zbuf=config.emit_zbuf or config.render_mode == "exact",
+            rgb24=rgb24,
+        )
+    rp, gp, bp = planes
     if config.filter_fused_color:
         image = F.filter_color_planar(rp, gp, bp, config.use_median_filter)
     else:
         image = torch.stack([rp, gp, bp], dim=-1)
+    return FusionResult(
+        image=image, zbuf=zbuf, valid_left=val_l, valid_right=val_r,
+        timestamp=left.timestamp,
+    )
+
+
+def _fuse_pallas(
+    left: Frameset,
+    right: Frameset,
+    fused_t: torch.Tensor,
+    right_total: torch.Tensor,
+    config: FusionConfig,
+    fused_intrinsics: Intrinsics,
+    prep_poses=None,
+) -> FusionResult:
+    """Packed-mode fusion with the per-pixel math in kernel B3 (JAX
+    pipeline.py:317-378)."""
+    if config.align_frames:
+        raise ValueError("pallas mode expects pre-aligned depth")
+    if config.roi_left is not None or config.roi_right is not None:
+        raise ValueError(
+            "pallas mode does not implement ROI masking; use "
+            "packed/indexed/exact/tiled"
+        )
+    z_near, z_far = _z_range(config)
+    preps = [
+        fuse_prep(fs.depth, fs.color, fs.depth_scale, config.min_depth, config.max_depth,
+                  fs.color_intrinsics, t, fused_intrinsics, config.mirror_image, z_near, z_far,
+                  pose=pose)
+        for fs, t, pose in zip((left, right), (fused_t, right_total), prep_poses or (None, None))
+    ]
+    idx = torch.cat([i.reshape(-1) for i, _ in preps])
+    key = torch.cat([k.reshape(-1) for _, k in preps])
+    buf = zresolve_cuda.scatter_min_u32(idx, key, fused_intrinsics.width * fused_intrinsics.height)
+    image, zbuf = R.unpack_packed_buffer(buf, fused_intrinsics, z_near, z_far)
+    if config.filter_fused_color:
+        image = F.filter_color(image, config.use_median_filter)
+    # valid_* carry the depth-window validity, as in the other modes (the
+    # keys' sentinel marks in-bounds projections, a different set).
+    _, val_l = F.filter_depth(left.depth, left.depth_scale, config.min_depth, config.max_depth)
+    _, val_r = F.filter_depth(right.depth, right.depth_scale, config.min_depth, config.max_depth)
     return FusionResult(
         image=image, zbuf=zbuf, valid_left=val_l, valid_right=val_r,
         timestamp=left.timestamp,
@@ -212,10 +293,14 @@ class FusionPipeline:
     """Holds config and intrinsics on one device (``device=None``: the
     card); :meth:`process` fuses each synchronized frame pair.
 
-    The two virtual-camera poses depend only on the config and the
-    registration transform, so they are computed when the transform is
-    set, not per frame. ``donate`` is accepted for API parity and has no
-    effect yet.
+    The two virtual-camera poses (and, in the pallas mode, B3's pose
+    parameters) depend only on the config and the registration transform,
+    so they are computed when the transform is set, not per frame. With
+    ``align_frames`` and ``align_footprint="auto"``, each camera's splat cap
+    is read on the host (a sync on the card) by :meth:`calibrate`, which
+    :meth:`process` calls on its first frame pair only: call it again when
+    a camera's calibration changes. ``donate`` is accepted for API parity
+    and has no effect yet.
     """
 
     def __init__(
@@ -231,6 +316,7 @@ class FusionPipeline:
             color_intrinsics_left.to(self.device), config.vertical_image
         )
         self._donate = donate
+        self._footprints = None
         self.set_right_transform(torch.eye(4, dtype=torch.float32))
 
     def set_right_transform(self, transform) -> None:
@@ -239,6 +325,29 @@ class FusionPipeline:
             transform, dtype=torch.float32
         ).to(self.device)
         self._poses = fused_poses(self.config, self.right_transform)
+        self._prep_poses = None
+        if self.config.render_mode == "pallas":
+            cfg = self.config
+            self._prep_poses = tuple(
+                pose_params(t, self.fused_intrinsics, cfg.min_depth, cfg.max_depth,
+                            *_z_range(cfg), self.device)
+                for t in self._poses
+            )
+
+    def calibrate(self, left: Frameset, right: Frameset) -> None:
+        """Resolve each camera's align splat cap from these framesets'
+        calibration (``auto_footprint``, read on the host)."""
+        cfg = self.config
+        if cfg.align_frames and cfg.align_footprint == "auto" and cfg.render_mode != "pallas":
+            self._footprints = tuple(
+                auto_footprint(fs.depth_intrinsics, fs.color_intrinsics, fs.depth_to_color)
+                for fs in (left, right)
+            )
+        else:
+            self._footprints = (cfg.align_footprint,) * 2
 
     def process(self, left: Frameset, right: Frameset) -> FusionResult:
-        return fuse_posed(left, right, *self._poses, self.config, self.fused_intrinsics)
+        if self._footprints is None:
+            self.calibrate(left, right)
+        return fuse_posed(left, right, *self._poses, self.config, self.fused_intrinsics,
+                          self._footprints, self._prep_poses)

@@ -107,6 +107,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.zresolve_launch.argtypes = [p, p, p, i, p, i, p, p, p]
     lib.zresolve_launch.restype = i
+    lib.scatter_min_u32_launch.argtypes = [p, p, i, p, i, p]
+    lib.scatter_min_u32_launch.restype = i
+    lib.fuse_prep_launch.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+    lib.fuse_prep_launch.restype = i
     lib.filter3x3_launch.argtypes = [p, p, i, i, i, p]
     lib.filter3x3_launch.restype = i
     lib.segsum_launch.argtypes = [p, p, p, i, i, i, p, p, p]

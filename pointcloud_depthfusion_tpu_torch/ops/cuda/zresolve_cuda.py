@@ -12,6 +12,12 @@ feed into its first resolve kernel, zresolve_pallas.py:417-453) computes
 the same contract, so it runs the same kernel; its launches are counted
 apart.
 
+``scatter_min_u32`` is the per-slot unsigned 32-bit minimum of the packed,
+indexed and pallas render modes (an XLA scatter in the JAX package, not a
+Pallas kernel; torch has no uint32 scatter-min). Its keys are uint32 bit
+patterns carried in int32 tensors (0xFFFFFFFF is -1): :func:`u32_value`
+and :func:`u32_bits` convert, and all arithmetic on them runs in int64.
+
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel, or raises.
 """
@@ -28,10 +34,22 @@ INT32_MAX = 0x7FFFFFFF
 #: Pixel id that routes an entry past every pixel (the JAX package's
 #: ``invalid_pixel_id``).
 INVALID_PIX = 0x40000000
+#: The all-ones uint32 key (empty slot, invalid entry) as its int32 bits.
+U32_EMPTY = -1
 
 #: Wrapper launches of the kernel, by wrapper name.
 launches = {"zresolve_winner_rgb": 0, "zresolve_sorted_entries": 0,
-            "zresolve_sorted_entries_legacy": 0}
+            "zresolve_sorted_entries_legacy": 0, "scatter_min_u32": 0}
+
+
+def u32_value(bits: torch.Tensor) -> torch.Tensor:
+    """int32 bit pattern → its uint32 value, as int64."""
+    return bits.to(torch.int64) & 0xFFFFFFFF
+
+
+def u32_bits(value: torch.Tensor) -> torch.Tensor:
+    """uint32 value held in int64 (in [0, 2³²)) → its int32 bit pattern."""
+    return (value - ((value >> 31) << 32)).to(torch.int32)
 
 
 # -- plain versions ---------------------------------------------------------
@@ -83,12 +101,22 @@ def zresolve_winner_rgb_plain(
     return _lo(_resolve_plain(pix, zbits, rgb, n_px))
 
 
+def scatter_min_u32_plain(idx: torch.Tensor, key: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """Plain version of :func:`scatter_min_u32`: ``scatter_reduce_(amin)``
+    of the int64 key values into a dump-slotted buffer."""
+    inside = (idx >= 0) & (idx < n_slots)
+    slot = torch.where(inside, idx, n_slots).to(torch.int64)
+    buf = torch.full((n_slots + 1,), 0xFFFFFFFF, dtype=torch.int64, device=idx.device)
+    buf.scatter_reduce_(0, slot, u32_value(key), "amin", include_self=True)
+    return u32_bits(buf[:n_slots])
+
+
 # -- kernel wrappers --------------------------------------------------------
 
 
-def _check_entries(pix, zbits, rgb) -> None:
+def _check_entries(pix, zbits, rgb, names=("pix", "zbits", "rgb")) -> None:
     n = pix.shape[0]
-    for name, t in (("pix", pix), ("zbits", zbits), ("rgb", rgb)):
+    for name, t in zip(names, (pix, zbits, rgb)):
         if t is None:
             continue
         if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != n:
@@ -152,3 +180,25 @@ def zresolve_winner_rgb(
     _launch(pix, zbits, rgb, n_px, None, mrgb)
     launches["zresolve_winner_rgb"] += 1
     return mrgb
+
+
+def scatter_min_u32(idx: torch.Tensor, key: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """Per-slot unsigned minimum of uint32 keys: (n_slots,) int32 bits,
+    0xFFFFFFFF (-1) where no entry landed. ``idx`` and ``key`` are (N,)
+    int32; an entry whose slot lies outside ``[0, n_slots)`` (the dump slot
+    ``n_slots`` among them) is dropped."""
+    _check_entries(idx, key, None, ("idx", "key", ""))
+    if idx.device.type == "cpu":
+        return scatter_min_u32_plain(idx, key, n_slots)
+    if idx.device.type != "cuda":
+        raise ValueError(f"unsupported device {idx.device}")
+    out = torch.empty(n_slots, dtype=torch.int32, device=idx.device)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(idx.device).cuda_stream
+    _build.check(
+        lib.scatter_min_u32_launch(idx.data_ptr(), key.data_ptr(), idx.shape[0],
+                                   out.data_ptr(), n_slots, stream),
+        "scatter_min_u32_launch",
+    )
+    launches["scatter_min_u32"] += 1
+    return out

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
+from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
 from pointcloud_depthfusion_tpu_torch.ops.cuda import segsum_cuda as B5
 from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
 
@@ -114,6 +115,67 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         B5.segsum_sorted(i, torch.zeros((8, 17), device=cuda), 4)
     with pytest.raises(ValueError, match="contiguous"):
         B5.segsum_sorted(i, torch.zeros((10, 8), device=cuda).t(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        Z.scatter_min_u32(i, torch.zeros(16, dtype=torch.int32, device=cuda)[::2], 4)
+    from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
+
+    intr = Intrinsics.create(6, 8, 5.0, 5.0, 3.0, 4.0, device=cuda)
+    depth = torch.zeros((6, 8), dtype=torch.int32, device=cuda)
+    color = torch.zeros((8, 6, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        B3.fuse_prep(depth.t(), color, 0.001, 0.5, 3.0, intr, torch.eye(4, device=cuda), intr,
+                     False, 0.25, 4.0)
+
+
+@pytest.mark.parametrize("n,n_slots", [(0, 5), (1, 1), (1000, 257), (70_001, 3000)])
+def test_scatter_min_u32_matches_plain(cuda, n, n_slots):
+    rng = np.random.default_rng(n + n_slots)
+    idx = torch.from_numpy(rng.integers(-2, n_slots + 2, n).astype(np.int32)).to(cuda)
+    key = torch.from_numpy(rng.integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32)).to(cuda)
+    key[::7] = -1
+    before = Z.launches["scatter_min_u32"]
+    got = Z.scatter_min_u32(idx, key, n_slots)
+    want = Z.scatter_min_u32_plain(idx, key, n_slots)
+    torch.cuda.synchronize()
+    assert Z.launches["scatter_min_u32"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), Z.scatter_min_u32(idx.cpu(), key.cpu(), n_slots))
+
+
+@pytest.mark.parametrize("w,h,mirror", [(128, 64, False), (128, 64, True), (64, 36, True),
+                                        (1, 1, False), (37, 5, True)])
+def test_fuse_prep_kernel_matches_plain(cuda, w, h, mirror):
+    """B3 bit for bit against its plain version on the card and on the CPU,
+    with a rotated and shifted pose and a target camera of another size."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
+
+    rng = np.random.default_rng(w * h)
+    depth = rng.integers(0, 4000, (h, w)).astype(np.int32)
+    depth[rng.random((h, w)) < 0.05] = 0
+    color = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    a = 0.12
+    t = np.eye(4, dtype=np.float32)
+    t[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    t[:3, 3] = [0.2, -0.05, 0.1]
+    src = Intrinsics.create(w, h, fx=0.74 * w, fy=0.75 * w, ppx=w / 2, ppy=h / 2, device="cpu")
+    dst = Intrinsics.create(h + 3, w, fx=0.7 * w, fy=0.7 * w, ppx=(h + 3) // 2, ppy=w // 2,
+                            device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        args = (torch.from_numpy(depth).to(dev), torch.from_numpy(color).to(dev),
+                torch.tensor(0.001, device=dev), torch.tensor(0.5, device=dev),
+                torch.tensor(3.0, device=dev), src.to(dev), torch.from_numpy(t).to(dev),
+                dst.to(dev), mirror, torch.tensor(0.25, device=dev), torch.tensor(4.0, device=dev))
+        out[str(dev)] = B3.fuse_prep(*args)
+        if dev != "cpu":
+            before = B3.launches["fuse_prep"]
+            plain = B3.fuse_prep_plain(*args)
+            out["plain"] = plain
+    torch.cuda.synchronize()
+    assert B3.launches["fuse_prep"] == before
+    for got in (out["plain"], out["cpu"]):
+        assert torch.equal(out["cuda"][0].cpu(), got[0].cpu())
+        assert torch.equal(out["cuda"][1].cpu(), got[1].cpu())
 
 
 def test_pipeline_on_card_matches_cpu(cuda):
@@ -128,16 +190,19 @@ def test_pipeline_on_card_matches_cpu(cuda):
     wl, wr = two_camera_rig()
     host = Intrinsics.create(w, h, fx=119.0, fy=119.0, ppx=80.0, ppy=60.0, device="cpu")
     frames = [SyntheticScene().render(host, pose, seed=i) for i, pose in enumerate((wl, wr))]
-    out = {}
-    for dev in ("cpu", cuda):
-        intr = host.to(dev)
-        pipe = FusionPipeline(intr, FusionConfig.create(), device=dev)
-        pipe.set_right_transform(right_to_left_transform(wl, wr))
-        fs = [Frameset.create(f.depth, f.color, intr, device=dev) for f in frames]
-        out[str(dev)] = pipe.process(*fs)
-    gpu, cpu = out["cuda"], out["cpu"]
-    assert (gpu.image.cpu() != cpu.image).any(-1).float().mean() <= 1e-3
-    assert (gpu.zbuf.cpu() < 1e38).float().mean() > 0.5
+    for mode, align in (("tiled", False), ("tiled", True), ("exact", False),
+                        ("indexed", False), ("packed", False), ("pallas", False)):
+        out = {}
+        for dev in ("cpu", cuda):
+            intr = host.to(dev)
+            cfg = FusionConfig.create(render_mode=mode, align_frames=align)
+            pipe = FusionPipeline(intr, cfg, device=dev)
+            pipe.set_right_transform(right_to_left_transform(wl, wr))
+            fs = [Frameset.create(f.depth, f.color, intr, device=dev) for f in frames]
+            out[str(dev)] = pipe.process(*fs)
+        gpu, cpu = out["cuda"], out["cpu"]
+        assert (gpu.image.cpu() != cpu.image).any(-1).float().mean() <= 1e-3, (mode, align)
+        assert (gpu.zbuf.cpu() < 1e38).float().mean() > 0.5, (mode, align)
 
 
 def test_registration_on_card_matches_cpu(cuda):

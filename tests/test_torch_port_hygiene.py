@@ -47,10 +47,11 @@ def test_cpu_pipeline_never_builds_kernels(monkeypatch):
     from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
     from pointcloud_depthfusion_tpu_torch.core.frameset import Frameset
     from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, FusionPipeline
-    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda, zresolve_cuda
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda, fuse_prep_cuda, zresolve_cuda
 
     monkeypatch.setattr(_build, "load", _refuse_build)
-    before = (dict(zresolve_cuda.launches), dict(filters_cuda.launches))
+    counters = (zresolve_cuda.launches, filters_cuda.launches, fuse_prep_cuda.launches)
+    before = tuple(dict(c) for c in counters)
     rng = np.random.default_rng(0)
     intr = Intrinsics.create(32, 24, fx=30.0, fy=30.0, ppx=16.0, ppy=12.0, device="cpu")
     fs = [Frameset.create(rng.integers(400, 3000, (24, 32)).astype(np.uint16),
@@ -62,7 +63,10 @@ def test_cpu_pipeline_never_builds_kernels(monkeypatch):
             cfg = FusionConfig.create(emit_zbuf=zbuf, use_median_filter=median, device="cpu")
             res = FusionPipeline(intr, cfg, device="cpu").process(*fs)
             assert res.image.shape == (32, 24, 3)
-    assert (zresolve_cuda.launches, filters_cuda.launches) == before
+    for mode in ("exact", "indexed", "packed", "pallas"):
+        cfg = FusionConfig.create(render_mode=mode, align_frames=mode != "pallas", device="cpu")
+        assert FusionPipeline(intr, cfg, device="cpu").process(*fs).image.shape == (32, 24, 3)
+    assert counters == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -89,7 +93,8 @@ def test_build_raises_with_compiler_output(monkeypatch, tmp_path):
 def test_build_flags_and_sources():
     import pointcloud_depthfusion_tpu_torch.core.geometry  # noqa: F401  (turns TF32 off)
 
-    assert [p.name for p in _build.sources()] == ["filters3x3.cu", "segsum.cu", "zresolve.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "filters3x3.cu", "fuse_prep.cu", "segsum.cu", "zresolve.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fPIC" in flags
     assert "-shared" in _build.LINK_FLAGS
