@@ -14,7 +14,13 @@ before and read just after:
   [8]   the registration service, ``RegistrationPipeline.tick``, with the
         settings of configs/registration_default.yaml;
   [11]  the fused frame in the other render modes (exact, indexed, packed,
-        pallas) and with depth→color alignment.
+        pallas) and with depth→color alignment;
+  [12]  the N-camera rig: kernel B7 against its plain version, ``rig_fuse``
+        at 4 and 8 cameras of 848×480 and 4 of 1280×720 in every rig mode
+        against the CPU, ``batched_rig_fuse`` against per-stream
+        ``rig_fuse``, and ``RigFusionNodeApp.run`` (4 cameras, inline
+        calibration sweeps) against the CPU, and against the rig's truth at
+        the deployment's 424×240.
 
 It times frames, ticks and kernels with CUDA events and a host clock ending
 in ``synchronize()``, and profiles one warm tick. Any failure raises and
@@ -47,6 +53,7 @@ REPLACES = {
     "median3x3_plane": "pointcloud_depthfusion_tpu/ops/pallas/filters_pallas.py:41",
     "segsum_sorted": "pointcloud_depthfusion_tpu/ops/pallas/segsum_pallas.py:42",
     "fuse_prep": "pointcloud_depthfusion_tpu/ops/pallas/fuse_prep_pallas.py:43",
+    "zresolve_sorted_streams": "pointcloud_depthfusion_tpu/ops/pallas/zresolve_pallas.py:500",
     # Not a Pallas kernel: the XLA scatter-min of the packed, indexed and
     # pallas modes, which torch cannot compute on uint32 keys.
     "scatter_min_u32": "pointcloud_depthfusion_tpu/ops/render.py:218",
@@ -59,6 +66,7 @@ SOURCES = {
     "median3x3_plane": "pointcloud_depthfusion_tpu_torch/csrc/filters3x3.cu",
     "segsum_sorted": "pointcloud_depthfusion_tpu_torch/csrc/segsum.cu",
     "fuse_prep": "pointcloud_depthfusion_tpu_torch/csrc/fuse_prep.cu",
+    "zresolve_sorted_streams": "pointcloud_depthfusion_tpu_torch/csrc/zresolve.cu",
     "scatter_min_u32": "pointcloud_depthfusion_tpu_torch/csrc/zresolve.cu",
 }
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory and
@@ -91,6 +99,51 @@ MODES = ("exact", "indexed", "packed", "pallas", "tiled+align")
 # focal length, for the aligned frames.
 ALIGN_T = (0.015, 0.0, 0.001)
 ALIGN_FOCAL = 0.8
+# Phase 12, the N-camera rig: the node's fusion settings (rig_node.py:90-97),
+# then each case's FusionConfig fields, multi_stream, and per-camera
+# intrinsics (with RIG_ROIS).
+RIG_CONFIG = dict(vertical_image=False, mirror_image=False, filter_fused_color=False)
+RIG_CASES = {
+    "tiled_image_only": (dict(emit_zbuf=False), False, False),
+    "tiled_zbuf": ({}, False, False),
+    "multi_stream": ({}, True, False),
+    "packed": (dict(render_mode="packed"), False, False),
+    "per_camera_gauss": (dict(filter_fused_color=True), False, True),
+}
+# (cameras, width, height) and the cases run there, RIG_FRAMES frames each.
+RIG_RUNS = (
+    ((4, 848, 480), ("tiled_image_only", "tiled_zbuf", "multi_stream", "packed",
+                     "per_camera_gauss")),
+    ((8, 848, 480), ("tiled_image_only", "multi_stream")),
+    ((4, 1280, 720), ("tiled_image_only",)),
+)
+RIG_FRAMES = 2
+RIG_CAMERAS = 4  # of the per-camera intrinsics and of the node
+RIG_BC_COEFFS = (0.06, -0.02, 0.001, -0.0015, 0.004)
+RIG_ROIS = [(40, 20, 760, 420), None, (-1, -1, -1, -1), (100, 0, 700, 480)]
+RIG_BATCHED = ((8, 848, 480), 2)  # the rig whose cameras make B streams, and B
+RIG_STREAMS_TIMED = (8, 848, 480)  # B7 is timed on this rig's entries
+RIG_PROFILED = ((8, 848, 480, "tiled_image_only"), (4, 848, 480, "packed"))
+B7_SHAPES = ((8, 407_040), (4, 921_600))  # (S, N = n_px)
+# The node: RigFusionNodeApp.run on RIG_CAMERAS synthetic cameras, inline
+# sweeps every NODE_EVERY frames, on the card and on the CPU, at each size
+# of NODE_RUNS: (width, height, truth, timed). With ``truth`` each adjacent
+# pair on both devices is held to the truth bar of
+# tests/test_nodes.py:641-642: at configs/deployment_rig4.yaml's 424×240.
+# Without it the card's cam_to_virtual is held within TRANSFORM_ATOL of the
+# CPU's: at 848×480, where the sweeps miss the truth bar on the card and the
+# CPU alike (ROADMAP queue C). Each run logs both measures. ``timed`` adds a
+# card run without sweeps for frames/s.
+NODE_RUNS = ((424, 240, True, False), (848, 480, False, True))
+NODE_FRAMES = 16
+NODE_EVERY = 4
+NODE_TRUTH_M, NODE_TRUTH_DEG = 0.03, 1.5
+# The node's starting guesses, (yaw degrees, x metres) per camera index off
+# the truth: the node test's perturbation, which the cold sweeps replace by
+# annealing from identity (tests/test_nodes.py:604-614), and a small one
+# loaded as a trusted calibration, which the warm sweeps refine.
+NODE_COLD_GUESS = (2.0, 0.03)
+NODE_LOADED_GUESS = (0.5, 0.01)
 
 
 def log(msg: str) -> None:
@@ -244,6 +297,16 @@ class Scene:
     t_rl2: np.ndarray
 
 
+def yaw_bump(deg: float, m: float) -> np.ndarray:
+    """A 4×4 that turns by ``deg`` of yaw (about y) and shifts by ``m``
+    along x."""
+    a = np.deg2rad(deg)
+    out = np.eye(4)
+    out[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    out[0, 3] = m
+    return out
+
+
 def build_scene(w: int, h: int, n_pairs: int = 2) -> Scene:
     """The bench scene: fx = 631·w/848, baseline 0.6, toe-in 10°, noise
     0.002, holes 0.01; pair k uses seeds (2k, 2k+1)."""
@@ -264,11 +327,7 @@ def build_scene(w: int, h: int, n_pairs: int = 2) -> Scene:
     ]
     t_rl = right_to_left_transform(wl, wr).astype(np.float32)
     # A registration update partway: 1 cm and 0.5° of yaw.
-    a = np.deg2rad(0.5)
-    bump = np.eye(4)
-    bump[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
-    bump[0, 3] = 0.01
-    return Scene(w, h, frames, t_rl, (bump @ t_rl).astype(np.float32))
+    return Scene(w, h, frames, t_rl, (yaw_bump(0.5, 0.01) @ t_rl).astype(np.float32))
 
 
 def framesets(scene: Scene, device: str, aligned: bool = False):
@@ -927,30 +986,487 @@ def drive_registration(scene: Scene, settings, tag: str) -> tuple:
     return again, host_ms, expected
 
 
-def profile_tick(pipe, scene: Scene, card: str) -> dict:
-    """One warm tick under torch.profiler: device busy share, kernel
-    launches, and the ops that take the device's time."""
+def profiled(fn, tag: str, top: int = 12) -> tuple:
+    """``fn()`` once under torch.profiler, ending in synchronize(): (wall
+    ms, device busy ms, device ops); logs the ops that take the device's
+    time under ``tag``."""
     from torch.profiler import ProfilerActivity, profile
 
-    dl, dr = (f.depth for f in scene.frames[0])
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        pipe.tick(dl, dr)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    iters = pipe.telemetry[-1].iterations
     rows = sorted(prof.key_averages(), key=lambda e: -getattr(e, "self_device_time_total", 0))
-    log(f"[9] profiled warm tick (dual {scene.w}x{scene.h}): wall {wall:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall:.1f}%), {len(kernels)} device ops (kernels, copies, "
-        f"fills), {iters} iterations ({len(kernels) / max(iters, 1):.1f} per iteration) on {card}")
-    for e in rows[:12]:
-        log(f"[9]   {getattr(e, 'self_device_time_total', 0) / 1e3:9.3f} ms  "
+    for e in rows[:top]:
+        log(f"{tag}   {getattr(e, 'self_device_time_total', 0) / 1e3:9.3f} ms  "
             f"x{e.count:<5d} {e.key[:90]}")
-    return {"wall_ms": wall, "busy_ms": busy, "kernels": len(kernels), "iterations": iters}
+    return wall, busy, len(kernels)
+
+
+def profile_tick(pipe, scene: Scene, card: str) -> dict:
+    """One warm tick under torch.profiler: device busy share, kernel
+    launches, and the ops that take the device's time."""
+    dl, dr = (f.depth for f in scene.frames[0])
+    wall, busy, n_ops = profiled(lambda: pipe.tick(dl, dr), "[9]")
+    iters = pipe.telemetry[-1].iterations
+    log(f"[9] profiled warm tick (dual {scene.w}x{scene.h}): wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}%), {n_ops} device ops (kernels, copies, "
+        f"fills), {iters} iterations ({n_ops / max(iters, 1):.1f} per iteration) on {card}")
+    return {"wall_ms": wall, "busy_ms": busy, "kernels": n_ops, "iterations": iters}
+
+
+# -- phase 12: the N-camera rig ----------------------------------------------
+
+
+@dataclasses.dataclass
+class Rig:
+    n: int
+    w: int
+    h: int
+    frames: list  # [(depth (n, h, w) int32, color (n, h, w, 3) uint8)], numpy
+    c2v: list  # [(n, 4, 4) float32 camera→virtual], one per frame
+    poses: np.ndarray  # (n, 4, 4) camera→world truth
+
+
+def rig_intrinsics(w: int, h: int, per_camera: bool = False, device="cpu"):
+    """The bench camera (fx = 631·w/848), or RIG_CAMERAS per-camera
+    variants of it under the inverse Brown-Conrady model, camera 1 with
+    real coefficients (the heterogeneous rig of tests/test_torch_rig.py)."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import Distortion, Intrinsics
+
+    fx = 631.0 * w / 848.0
+    if not per_camera:
+        return Intrinsics.create(w, h, fx=fx, fy=fx, ppx=w / 2, ppy=h / 2, device=device)
+    return [Intrinsics.create(w, h, fx=fx * (1 + 0.02 * i), fy=fx * (1 + 0.015 * i),
+                              ppx=w / 2 + 1.5 * (i - 1), ppy=h / 2 - i,
+                              model=Distortion.INVERSE_BROWN_CONRADY,
+                              coeffs=RIG_BC_COEFFS if i == 1 else (0.0,) * 5, device=device)
+            for i in range(RIG_CAMERAS)]
+
+
+def render_arc(n: int, w: int, h: int, n_frames: int, seed0: int, seed_step: int) -> tuple:
+    """n cameras of rig_intrinsics(w, h) on the arc of
+    configs/deployment_rig4.yaml (span 0.8 m, 37.5°/m toe-in), noise 0.002,
+    holes 0.01, frame k stamped k/30 s and camera i of it seeded
+    seed0 + seed_step·k + i: (camera→world poses (n, 4, 4),
+    [[HostFrameset of camera i] of frame k])."""
+    from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene, rig_arc_poses
+
+    intr = rig_intrinsics(w, h)
+    poses = np.stack(rig_arc_poses(n, span=0.8, toe_in_deg_per_m=37.5))
+    scene = SyntheticScene()
+    return poses, [[scene.render(intr, poses[i], depth_noise_std=0.002, hole_fraction=0.01,
+                                 seed=seed0 + seed_step * k + i, timestamp=k / 30.0)
+                    for i in range(n)] for k in range(n_frames)]
+
+
+def perturbed(poses: np.ndarray, deg: float, m: float) -> np.ndarray:
+    """Each camera→virtual pose moved by ``yaw_bump(deg·i, m·i)``, i its
+    camera index."""
+    return np.stack([p @ yaw_bump(deg * i, m * i) for i, p in enumerate(poses)]).astype(np.float32)
+
+
+def build_rig(n: int, w: int, h: int, n_frames: int = RIG_FRAMES) -> Rig:
+    """The arc rig (render_arc), camera i of frame k seeded 100·k + i.
+    cam_to_virtual is the truth, moved on frame k ≥ 1 by 1 cm and 0.5° of
+    yaw per camera index (a sweep's update)."""
+    poses, rendered = render_arc(n, w, h, n_frames, 0, 100)
+    frames = [(np.stack([f.depth for f in fs]).astype(np.int32), np.stack([f.color for f in fs]))
+              for fs in rendered]
+    c2v = [perturbed(poses, 0.5 * k, 0.01 * k) for k in range(n_frames)]
+    return Rig(n, w, h, frames, c2v, poses)
+
+
+def rig_args(rig: Rig, k: int, device, batch: int = 0):
+    """Frame k as rig_fuse's (depth, color, depth_scale, cam_to_virtual) on
+    ``device``; ``batch`` > 0 splits the cameras into that many streams."""
+    depth, color = rig.frames[k]
+    arrays = (depth, color, np.full((rig.n,), 0.001, np.float32), rig.c2v[k])
+    out = [torch.from_numpy(a).to(device) for a in arrays]
+    if batch:
+        out = [t.reshape(batch, rig.n // batch, *t.shape[1:]) for t in out]
+    return out
+
+
+def rig_case(rig: Rig, case: str, device):
+    """(rig_fuse step, render mode) of one RIG_CASES case on ``device``."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import fused_virtual_intrinsics
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
+    from pointcloud_depthfusion_tpu_torch.parallel.mesh import rig_fuse
+
+    fields, multi, per_camera = RIG_CASES[case]
+    cfg = FusionConfig.create(device=device, **{**RIG_CONFIG, **fields})
+    intr = rig_intrinsics(rig.w, rig.h, per_camera)
+    ref = intr[0] if per_camera else intr
+    fn = rig_fuse(intr, fused_virtual_intrinsics(ref, False), cfg, multi_stream=multi,
+                  rois=RIG_ROIS if per_camera else None, device=device)
+    return fn, cfg.render_mode
+
+
+def rig_expected(case: str, n: int, frames: int) -> dict:
+    """The launches of ``frames`` frames of one case on the card."""
+    fields, multi, _ = RIG_CASES[case]
+    if fields.get("render_mode") == "packed":
+        out = {"scatter_min_u32": frames}
+    elif multi and n >= 2:
+        out = {"zresolve_sorted_streams": frames}
+    elif fields.get("emit_zbuf", True):
+        out = {"zresolve_sorted_entries": frames}
+    else:
+        out = {"zresolve_winner_rgb": frames}
+    if fields.get("filter_fused_color"):
+        plane = "median3x3_plane" if fields.get("use_median_filter") else "gauss3x3_plane"
+        out[plane] = 3 * frames
+    return out
+
+
+def rig_mismatch(gpu: torch.Tensor, cpu: torch.Tensor, mode: str) -> tuple:
+    """(names, fractions, ok) of a card image against the CPU's: the image
+    within PIXEL_BUDGET for the exact modes; coverage within PIXEL_BUDGET and
+    color within COLOR_BUDGET for packed."""
+    g = gpu.cpu()
+    color = float((g != cpu).any(-1).float().mean())
+    if mode != "packed":
+        return ("image",), (color,), color <= PIXEL_BUDGET
+    cov = float((g.any(-1) != cpu.any(-1)).float().mean())
+    return ("coverage", "color"), (cov, color), cov <= PIXEL_BUDGET and color <= COLOR_BUDGET
+
+
+def drive_rig(rig: Rig, cases, tag: str) -> dict:
+    """Every case of ``cases`` on the card and on the CPU, frame by frame;
+    multi_stream against its default on the card, bit for bit. Returns the
+    expected launches."""
+    expected: dict = {}
+    images = {}
+    for case in cases:
+        gpu, mode = rig_case(rig, case, DEVICE)
+        cpu, _ = rig_case(rig, case, "cpu")
+        images[case] = []
+        for k in range(len(rig.frames)):
+            ig = gpu(*rig_args(rig, k, DEVICE))
+            ic = cpu(*rig_args(rig, k, "cpu"))
+            torch.cuda.synchronize()
+            if ig.shape != (rig.h, rig.w, 3) or ig.dtype != torch.uint8:
+                raise AssertionError(f"{tag} {case}: image {tuple(ig.shape)} {ig.dtype}")
+            coverage = float(ig.any(-1).float().mean())
+            names, fr, ok = rig_mismatch(ig, ic, mode)
+            log(f"[12 {tag}] {case} frame {k}: coverage={coverage:.4f} vs CPU: "
+                + " ".join(f"{n}={v:.6g}" for n, v in zip(names, fr)))
+            if coverage < 0.5 or not ok:
+                raise AssertionError(f"{tag} {case} frame {k}: coverage {coverage}, vs CPU {fr}")
+            images[case].append(ig)
+        for name, v in rig_expected(case, rig.n, len(rig.frames)).items():
+            expected[name] = expected.get(name, 0) + v
+    for default in ("tiled_zbuf", "tiled_image_only"):
+        if "multi_stream" in images and default in images:
+            same = all(torch.equal(a, b) for a, b in zip(images["multi_stream"], images[default]))
+            log(f"[12 {tag}] multi_stream bit-identical to {default} on the card: {same}")
+            if not same:
+                raise AssertionError(f"{tag}: multi_stream differs from {default} on the card")
+    return expected
+
+
+def drive_batched(rig: Rig, batch: int, tag: str) -> dict:
+    """batched_rig_fuse over ``batch`` streams of the rig's cameras against
+    rig_fuse on each stream, on the card, tiled and packed."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import fused_virtual_intrinsics
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
+    from pointcloud_depthfusion_tpu_torch.parallel.mesh import batched_rig_fuse, rig_fuse
+
+    cams = rig.n // batch
+    intr = rig_intrinsics(rig.w, rig.h)
+    fused = fused_virtual_intrinsics(intr, False)
+    expected: dict = {}
+    for mode in ("tiled", "packed"):
+        cfg = FusionConfig.create(render_mode=mode, device=DEVICE, **RIG_CONFIG)
+        fb = batched_rig_fuse(intr, fused, cfg, batch, cams, device=DEVICE)
+        one = rig_fuse(intr, fused, cfg, device=DEVICE)
+        for k in range(len(rig.frames)):
+            out = fb(*rig_args(rig, k, DEVICE, batch))
+            streams = rig_args(rig, k, DEVICE, batch)
+            want = [one(*(t[b] for t in streams)) for b in range(batch)]
+            torch.cuda.synchronize()
+            same = out.shape == (batch, rig.h, rig.w, 3) and all(
+                torch.equal(out[b], want[b]) for b in range(batch))
+            log(f"[12 {tag}] batched {mode} B={batch}x{cams} frame {k}: equal to per-stream "
+                f"rig_fuse on the card: {same}")
+            if not same:
+                raise AssertionError(f"{tag}: batched {mode} differs from per-stream")
+        name = "scatter_min_u32" if mode == "packed" else "zresolve_sorted_entries"
+        expected[name] = expected.get(name, 0) + (1 + batch) * len(rig.frames)
+    return expected
+
+
+class ReplaySource:
+    """A finite camera stream of prerendered HostFramesets."""
+
+    def __init__(self, frames, intr):
+        self._frames = list(frames)
+        self._intr = intr
+
+    @property
+    def intrinsics(self):
+        return self._intr
+
+    def next_frame(self):
+        return self._frames.pop(0) if self._frames else None
+
+
+def pair_truth_errors(c2v: np.ndarray, poses: np.ndarray) -> list:
+    """[(translation m, rotation deg)] of each adjacent pair's relative
+    transform against the truth."""
+    out = []
+    for i in range(len(poses) - 1):
+        est = np.linalg.inv(c2v[i].astype(np.float64)) @ c2v[i + 1]
+        out.append(truth_error(est, np.linalg.inv(poses[i]) @ poses[i + 1]))
+    return out
+
+
+def run_node(streams, intr, init, dev, every: int, loaded: bool, label: str, card: str):
+    """One RigFusionNodeApp.run over the prerendered ``streams``; ``loaded``
+    starts it from ``init`` as a loaded (trusted) calibration, so the sweeps
+    refine it instead of annealing from identity. Returns (app, wall s,
+    upload_ms per set, fused images)."""
+    import tempfile
+
+    from pointcloud_depthfusion_tpu_torch.nodes.rig_node import RigFusionNodeApp
+
+    app = RigFusionNodeApp([ReplaySource(s, intr) for s in streams], intr, init,
+                           registration_every=every, registration_async=False, device=dev)
+    if loaded:
+        with tempfile.TemporaryDirectory() as tmp:
+            app.save_calibration(f"{tmp}/rig_calibration.txt")
+            if not app.load_calibration(f"{tmp}/rig_calibration.txt"):
+                raise AssertionError("node: calibration round trip failed")
+    uploads, images = [], []
+    fuse_one = app.process_batch
+
+    def process(batch):
+        uploads.append(batch.upload_ms)
+        images.append(fuse_one(batch))
+        return images[-1]
+
+    app.process_batch = process
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = app.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, (h, w) = len(streams), images[0].shape[:2]
+    coverage = min(float(img.any(-1).mean()) for img in images)
+    log(f"[12 node] {label}: {done} frames of {n}x{w}x{h} in {wall:.3f} s ({done / wall:.3f} "
+        f"frames/s incl. {app.registration_ticks} inline sweeps), min coverage {coverage:.4f}, "
+        f"upload_ms mean {np.mean(uploads):.4f} min {np.min(uploads):.4f} max "
+        f"{np.max(uploads):.4f}" + (f" on {card}" if dev == DEVICE else ""))
+    if done != NODE_FRAMES or coverage < 0.5:
+        raise AssertionError(f"node {label}: {done} frames, coverage {coverage}")
+    if app.registration_ticks != (-(-NODE_FRAMES // every) if every else 0):
+        raise AssertionError(f"node {label}: {app.registration_ticks} sweeps")
+    return app, wall, uploads, images
+
+
+def drive_node(w: int, h: int, truth: bool, timed: bool, card: str) -> tuple:
+    """RigFusionNodeApp.run over NODE_FRAMES frames of RIG_CAMERAS cameras
+    at w×h with inline sweeps every NODE_EVERY frames, on the card and on
+    the CPU: from perturbed guesses that the sweeps replace (cold: annealing
+    from identity) and from a small guess loaded as a trusted calibration
+    (warm refinement). With ``truth`` every adjacent pair on both devices
+    within the node test's truth bar, else the card's cam_to_virtual within
+    TRANSFORM_ATOL of the CPU's (the warm sweeps slide along the scene's
+    flat directions by amounts that rounding sets, so the two measures need
+    not hold together); with ``timed`` once more on the card without
+    sweeps. Returns (expected launches, {metric: value})."""
+    n = RIG_CAMERAS
+    intr = rig_intrinsics(w, h)
+    poses, rendered = render_arc(n, w, h, NODE_FRAMES, 1000, 10)
+    streams = [[fs[i] for fs in rendered] for i in range(n)]
+    inits = {"cold": perturbed(poses, *NODE_COLD_GUESS),
+             "loaded": perturbed(poses, *NODE_LOADED_GUESS)}
+    size = f"{n}x{w}x{h}"
+    runs = {}
+    for start, init in inits.items():
+        for dev, side in ((DEVICE, "card"), ("cpu", "cpu")):
+            runs[side, start] = run_node(streams, intr, init, dev, NODE_EVERY, start == "loaded",
+                                         f"{size} {side}, {start}", card)
+    if timed:
+        runs["card", "no sweeps"] = run_node(streams, intr, inits["cold"], DEVICE, 0, False,
+                                             f"{size} card, no sweeps", card)
+    metrics = {}
+    for start in ("cold", "loaded"):
+        (card_app, _, _, card_img), (cpu_app, _, _, cpu_img) = (
+            runs["card", start], runs["cpu", start])
+        diff = float(np.abs(card_app.cam_to_virtual - cpu_app.cam_to_virtual).max())
+        frames_differ = max(float((a != b).any(-1).mean()) for a, b in zip(card_img, cpu_img))
+        errs = {k: pair_truth_errors(a.cam_to_virtual, poses)
+                for k, a in (("card", card_app), ("cpu", cpu_app))}
+        meets = {k: [t < NODE_TRUTH_M and a < NODE_TRUTH_DEG for t, a in e]
+                 for k, e in errs.items()}
+        flips = sum(a != b for pg, pc in zip(card_app._pair_pipes, cpu_app._pair_pipes)
+                    for a, b in zip(flags(pg), flags(pc)))
+        log(f"[12 node] {size} {start}: card vs CPU cam_to_virtual max|d|={diff:.3g} (bar "
+            f"{TRANSFORM_ATOL}{', logged only' if truth else ''}); pair ticks whose gating flags "
+            f"differ card vs CPU {flips} of {sum(len(p.telemetry) for p in cpu_app._pair_pipes)}; "
+            f"fused frames card vs CPU differ on at most {frames_differ:.6g} "
+            f"of pixels (each fuses its own calibration); pairs vs truth (m, deg): card "
+            f"{[(round(t, 5), round(a, 4)) for t, a in errs['card']]} CPU "
+            f"{[(round(t, 5), round(a, 4)) for t, a in errs['cpu']]} (bar {NODE_TRUTH_M} m, "
+            f"{NODE_TRUTH_DEG} deg{'' if truth else ', logged only'}): card meets it "
+            f"{meets['card']}, CPU {meets['cpu']}")
+        for app in (card_app, cpu_app):
+            if not np.array_equal(app.cam_to_virtual[0], inits[start][0]):
+                raise AssertionError(f"node {size} {start}: camera 0 moved")
+        if not truth and diff > TRANSFORM_ATOL:
+            raise AssertionError(f"node {size} {start}: card vs CPU cam_to_virtual {diff}")
+        if truth and not all(meets["card"] + meets["cpu"]):
+            raise AssertionError(f"node {size} {start}: pairs vs truth: card {errs['card']}, "
+                                 f"CPU {errs['cpu']}")
+        metrics[f"node_{size}_cam_to_virtual_card_vs_cpu_{start}"] = diff
+        metrics[f"node_{size}_worst_pair_vs_truth_{start}"] = [
+            max(e[0] for e in errs["card"]), max(e[1] for e in errs["card"])]
+    card_runs = [k for k in runs if k[0] == "card"]
+    segsum = sum(4 if t.target_grid_rebuilt else 2
+                 for k in card_runs for pipe in runs[k][0]._pair_pipes or ()
+                 for t in pipe.telemetry)
+    expected = {"zresolve_winner_rgb": len(card_runs) * NODE_FRAMES, "segsum_sorted": segsum}
+    uploads = [u for k in card_runs for u in runs[k][2]]
+    metrics[f"node_{size}_upload_ms_mean"] = float(np.mean(uploads))
+    metrics[f"node_{size}_upload_ms_max"] = float(np.max(uploads))
+    metrics[f"node_{size}_fps_with_sweeps"] = NODE_FRAMES / runs["card", "cold"][1]
+    if timed:
+        metrics[f"node_{size}_fps"] = NODE_FRAMES / runs["card", "no sweeps"][1]
+    return expected, metrics
+
+
+def phase_streams(errs: dict) -> None:
+    """B7 against its plain version on the card, bit-exact, at the 8-camera
+    848×480 rig's shape and the 4-camera 1280×720 one."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
+
+    for s, n_px in B7_SHAPES:
+        pix, z, rgb = (t.reshape(s, n_px) for t in resolve_entries(s * n_px, n_px, s + n_px,
+                                                                    DEVICE))
+        got = Z.zresolve_sorted_streams(pix, z, rgb, n_px)
+        want = Z.zresolve_sorted_streams_plain(pix, z, rgb, n_px)
+        d_got = Z.zresolve_sorted_streams(pix, z, None, n_px)
+        d_want = Z.zresolve_sorted_streams_plain(pix, z, None, n_px)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a, b) for a, b in zip((*got, *d_got), (*want, *d_want)))
+        exact = all(torch.equal(a, b) for a, b in zip((*got, *d_got), (*want, *d_want)))
+        log(f"[12] B7 zresolve_sorted_streams S={s} N={n_px} n_px={n_px}: max_abs_err={err} "
+            f"bit-exact={exact} empty_fraction={float((got[0] == Z.INT32_MAX).float().mean()):.4f}")
+        if not exact:
+            raise AssertionError(f"B7 differs from plain at S={s} n_px={n_px}")
+        errs["zresolve_sorted_streams"] = max(errs["zresolve_sorted_streams"], err)
+
+
+def time_rig(rigs: dict, card: str, iters: int = 10, warmup: int = 2) -> dict:
+    """ms/frame of every rig case and of the batched rig (CUDA events)."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import fused_virtual_intrinsics
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
+    from pointcloud_depthfusion_tpu_torch.parallel.mesh import batched_rig_fuse
+
+    out = {}
+    for (n, w, h), cases in RIG_RUNS:
+        rig = rigs[(n, w, h)]
+        for case in cases:
+            fn, _ = rig_case(rig, case, DEVICE)
+            args = rig_args(rig, 0, DEVICE)
+            key = f"rig_{n}x{w}x{h}_{case}"
+            out[key] = cuda_ms(lambda: fn(*args), iters, warmup)
+    rig = rigs[RIG_BATCHED[0]]
+    batch = RIG_BATCHED[1]
+    intr = rig_intrinsics(rig.w, rig.h)
+    for mode in ("tiled", "packed"):
+        cfg = FusionConfig.create(render_mode=mode, device=DEVICE, **RIG_CONFIG)
+        fb = batched_rig_fuse(intr, fused_virtual_intrinsics(intr, False), cfg, batch,
+                              rig.n // batch, device=DEVICE)
+        args = rig_args(rig, 0, DEVICE, batch)
+        out[f"batched_{batch}x{rig.n // batch}x{rig.w}x{rig.h}_{mode}"] = cuda_ms(
+            lambda: fb(*args), iters, warmup)
+    for key, ms in out.items():
+        log(f"[12] {key}: {ms:.4f} ms/frame (CUDA events, {iters} frames after {warmup} "
+            f"warm-up) on {card}")
+    return out
+
+
+def time_streams(rig: Rig, card: str) -> tuple:
+    """B7 on the rig's own per-camera entries (frame 0, multi_stream's
+    feed): (ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import fused_virtual_intrinsics
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
+    from pointcloud_depthfusion_tpu_torch.parallel import mesh as M
+
+    intr = rig_intrinsics(rig.w, rig.h)
+    fused = fused_virtual_intrinsics(intr, False).to(DEVICE)
+    cfg = FusionConfig.create(device=DEVICE, **RIG_CONFIG)
+    calib = M._RigCalibration(intr, None, torch.device(DEVICE))
+    entries_all = M._tiled_rig_body(calib, fused, cfg)[1]
+    pix, z, rgb = entries_all(*rig_args(rig, 0, DEVICE), per_stream=True)
+    s, n = pix.shape
+    n_px = fused.width * fused.height
+    # The library's resolve: one scatter_reduce_(amin) of prebuilt int64
+    # keys (z bits high, rgb low) into a dump-slotted pixel buffer.
+    flat = pix.reshape(-1)
+    idx = torch.where((flat >= 0) & (flat < n_px), flat, n_px).to(torch.int64)
+    keys = (z.reshape(-1).to(torch.int64) << 32) | (rgb.reshape(-1).to(torch.int64) + (1 << 31))
+    buf = torch.full((n_px + 1,), torch.iinfo(torch.int64).max, dtype=torch.int64, device=DEVICE)
+    library = cuda_ms(lambda: buf.scatter_reduce_(0, idx, keys, "amin", include_self=True), 20)
+    k, p, each = turns(lambda: Z.zresolve_sorted_streams(pix, z, rgb, n_px),
+                       lambda: Z.zresolve_sorted_streams_plain(pix, z, rgb, n_px))
+    # 12 B in per entry, 8 B out per pixel; a compare and an atomic per entry.
+    b_ms, b_by = bound(12 * s * n + 8 * n_px, 2 * s * n)
+    valid = float((flat != Z.INVALID_PIX).float().mean())
+    log(f"[12] zresolve_sorted_streams at the {rig.n}x{rig.w}x{rig.h} rig's entries "
+        f"(S={s} N={n} n_px={n_px}, {valid:.4f} valid): kernel {k:.5f} ms ({each[0]:.5f}, "
+        f"{each[1]:.5f}), plain {p:.5f} ms ({each[2]:.5f}, {each[3]:.5f}), library {library:.5f} "
+        f"ms (scatter_reduce_ amin), bound {b_ms:.5f} ms by {b_by} on {card}")
+    return k, p, library, b_ms, b_by
+
+
+def phase_rig(card: str, errs: dict) -> tuple:
+    """Phase 12: B7 against its plain version, then the rig's main path with
+    the launch counts set to 0 just before and read just after, then its
+    timing. Returns (launches, B7's timing row, {metric: value})."""
+    phase_streams(errs)
+    rigs = {key: build_rig(*key) for key, _ in RIG_RUNS}
+    reset_launches()
+    expected = {k: 0 for k in read_launches()}
+
+    def add(counts):
+        for name, v in counts.items():
+            expected[name] += v
+
+    for (n, w, h), cases in RIG_RUNS:
+        add(drive_rig(rigs[(n, w, h)], cases, f"{n}x{w}x{h}"))
+    key, batch = RIG_BATCHED
+    add(drive_batched(rigs[key], batch, f"{key[0]}x{key[1]}x{key[2]}"))
+    metrics = {}
+    for w, h, truth, timed in NODE_RUNS:
+        node_expected, node_metrics = drive_node(w, h, truth, timed, card)
+        add(node_expected)
+        metrics.update(node_metrics)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[12] launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != expected {expected}")
+    frame_ms = time_rig(rigs, card)
+    for key in RIG_PROFILED:
+        fn, _ = rig_case(rigs[key[:3]], key[3], DEVICE)
+        args = rig_args(rigs[key[:3]], 0, DEVICE)
+        fn(*args)
+        wall, busy, n_ops = profiled(lambda: fn(*args), "[12]", top=6)
+        log(f"[12] profiled warm frame ({key[0]}x{key[1]}x{key[2]} {key[3]}): wall {wall:.3f} ms, "
+            f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), {n_ops} device ops on {card}")
+    streams = time_streams(rigs[RIG_STREAMS_TIMED], card)
+    log(f"[12] summary ms/frame {json.dumps(frame_ms)} node {json.dumps(metrics)} on {card}")
+    return launches, streams, {**frame_ms, **metrics}
 
 
 def main() -> int:
@@ -1039,6 +1555,10 @@ def main() -> int:
     if reg_launches != expected or reg_launches["segsum_sorted"] < 1:
         raise AssertionError(f"launch counts {reg_launches} != expected {expected}")
 
+    # [12] the N-camera rig: B7, rig_fuse, batched_rig_fuse and the rig node;
+    # the launch counts cover exactly its main path.
+    rig_launches, streams_timing, _ = phase_rig(card, errs)
+
     # [6], [9] timing
     frame_ms = {**time_pipeline(scene_848, card), **time_pipeline(scene_720, card),
                 **time_modes(scene_848, card), **time_modes(scene_720, card)}
@@ -1058,10 +1578,12 @@ def main() -> int:
     log(f"[9] summary ms/tick {json.dumps(tick_ms)} on {card}")
     k, p, _, b_ms, b_by = seg[f"dual {reg_scenes[-1].w}x{reg_scenes[-1].h} cloud at 0.01 m"]
 
-    launches = {k: fusion_launches[k] + mode_launches[k] + reg_launches[k] for k in fusion_launches}
+    launches = {k: fusion_launches[k] + mode_launches[k] + reg_launches[k] + rig_launches[k]
+                for k in fusion_launches}
     # No one PyTorch call computes both halves of B5 (the sums and the
     # representative); index_add_'s time for the sums alone is logged above.
-    timing = {**kernel_ms, "segsum_sorted": (k, p, None, b_ms, b_by)}
+    timing = {**kernel_ms, "segsum_sorted": (k, p, None, b_ms, b_by),
+              "zresolve_sorted_streams": streams_timing}
     log(card)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -1,7 +1,9 @@
 // Per-pixel z-buffer resolve by one 64-bit atomicMin per entry.
 //
-// Replaces the Pallas kernels _resolve3_kernel (zresolve_sorted_entries) and
-// _resolve_rgb_kernel (zresolve_winner_rgb) in
+// Replaces the Pallas kernels _resolve3_kernel (zresolve_sorted_entries),
+// _resolve_rgb_kernel (zresolve_winner_rgb) and _streams_kernel
+// (zresolve_sorted_streams, whose (S, N) streams arrive here as S·N
+// contiguous entries) in
 // pointcloud_depthfusion_tpu/ops/pallas/zresolve_pallas.py. The TPU version
 // sorts the entries by pixel and resolves sorted slabs, because a TPU
 // scatter-min is a serial loop. Hopper has native 64-bit atomics, so the

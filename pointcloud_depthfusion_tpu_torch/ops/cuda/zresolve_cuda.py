@@ -12,6 +12,13 @@ feed into its first resolve kernel, zresolve_pallas.py:417-453) computes
 the same contract, so it runs the same kernel; its launches are counted
 apart.
 
+``zresolve_sorted_streams`` (kernel B7) replaces the JAX package's
+multi-stream resolve (``_streams_kernel``, zresolve_pallas.py:500-581):
+the same contract over (S, N) entries, S streams that the TPU sorts one by
+one because its sort scales super-linearly. The atomic resolve does not
+depend on the order of its entries, so B7 is one launch of the B2 kernel
+over all S·N entries, counted apart.
+
 ``scatter_min_u32`` is the per-slot unsigned 32-bit minimum of the packed,
 indexed and pallas render modes (an XLA scatter in the JAX package, not a
 Pallas kernel; torch has no uint32 scatter-min). Its keys are uint32 bit
@@ -39,7 +46,8 @@ U32_EMPTY = -1
 
 #: Wrapper launches of the kernel, by wrapper name.
 launches = {"zresolve_winner_rgb": 0, "zresolve_sorted_entries": 0,
-            "zresolve_sorted_entries_legacy": 0, "scatter_min_u32": 0}
+            "zresolve_sorted_entries_legacy": 0, "zresolve_sorted_streams": 0,
+            "scatter_min_u32": 0}
 
 
 def u32_value(bits: torch.Tensor) -> torch.Tensor:
@@ -94,6 +102,15 @@ def zresolve_sorted_entries_plain(
     return (minz, minz) if rgb is None else (minz, _lo(keys))
 
 
+def zresolve_sorted_streams_plain(
+    pix: torch.Tensor, zbits: torch.Tensor, rgb: Optional[torch.Tensor], n_px: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`zresolve_sorted_streams`: the single-stream
+    resolve over the flattened entries."""
+    return zresolve_sorted_entries_plain(
+        pix.reshape(-1), zbits.reshape(-1), None if rgb is None else rgb.reshape(-1), n_px)
+
+
 def zresolve_winner_rgb_plain(
     pix: torch.Tensor, zbits: torch.Tensor, rgb: torch.Tensor, n_px: int
 ) -> torch.Tensor:
@@ -114,13 +131,16 @@ def scatter_min_u32_plain(idx: torch.Tensor, key: torch.Tensor, n_slots: int) ->
 # -- kernel wrappers --------------------------------------------------------
 
 
-def _check_entries(pix, zbits, rgb, names=("pix", "zbits", "rgb")) -> None:
-    n = pix.shape[0]
+def _check_entries(pix, zbits, rgb, names=("pix", "zbits", "rgb"), ndim: int = 1) -> None:
+    """Each given tensor: int32, contiguous, on pix's device, with pix's
+    shape of rank ``ndim`` ((N,) entries, or (S, N) streams)."""
+    shape, layout = tuple(pix.shape), "(N,)" if ndim == 1 else "(S, N)"
     for name, t in zip(names, (pix, zbits, rgb)):
         if t is None:
             continue
-        if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != n:
-            raise ValueError(f"{name}: expected ({n},) int32, got {tuple(t.shape)} {t.dtype}")
+        if t.dtype != torch.int32 or t.dim() != ndim or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {layout} int32 of {shape}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
         if t.device != pix.device:
@@ -135,13 +155,27 @@ def _launch(pix, zbits, rgb, n_px: int, minz, mrgb) -> None:
         lib.zresolve_launch(
             pix.data_ptr(), zbits.data_ptr(),
             None if rgb is None else rgb.data_ptr(),
-            pix.shape[0], keys.data_ptr(), n_px,
+            pix.numel(), keys.data_ptr(), n_px,
             None if minz is None else minz.data_ptr(),
             None if mrgb is None else mrgb.data_ptr(),
             stream,
         ),
         "zresolve_launch",
     )
+
+
+def _sorted(pix, zbits, rgb, n_px: int, counter: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B2 on checked entries of any layout: the plain version on the CPU,
+    else one launch counted under ``counter``."""
+    if pix.device.type == "cpu":
+        return zresolve_sorted_streams_plain(pix, zbits, rgb, n_px)
+    if pix.device.type != "cuda":
+        raise ValueError(f"unsupported device {pix.device}")
+    minz = torch.empty(n_px, dtype=torch.int32, device=pix.device)
+    mrgb = None if rgb is None else torch.empty_like(minz)
+    _launch(pix, zbits, rgb, n_px, minz, mrgb)
+    launches[counter] += 1
+    return (minz, minz) if rgb is None else (minz, mrgb)
 
 
 def zresolve_sorted_entries(
@@ -153,15 +187,21 @@ def zresolve_sorted_entries(
     the min z bits twice. ``legacy_feed`` gives the same result through
     the same kernel and counts under ``zresolve_sorted_entries_legacy``."""
     _check_entries(pix, zbits, rgb)
-    if pix.device.type == "cpu":
-        return zresolve_sorted_entries_plain(pix, zbits, rgb, n_px)
-    if pix.device.type != "cuda":
-        raise ValueError(f"unsupported device {pix.device}")
-    minz = torch.empty(n_px, dtype=torch.int32, device=pix.device)
-    mrgb = None if rgb is None else torch.empty_like(minz)
-    _launch(pix, zbits, rgb, n_px, minz, mrgb)
-    launches["zresolve_sorted_entries_legacy" if legacy_feed else "zresolve_sorted_entries"] += 1
-    return (minz, minz) if rgb is None else (minz, mrgb)
+    return _sorted(pix, zbits, rgb, n_px, "zresolve_sorted_entries_legacy" if legacy_feed
+                   else "zresolve_sorted_entries")
+
+
+def zresolve_sorted_streams(
+    pix: torch.Tensor, zbits: torch.Tensor, rgb: Optional[torch.Tensor], n_px: int,
+    tile_px: int = 256, chunk: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`zresolve_sorted_entries` over (S, N) int32 entries, S streams
+    of N: per pixel (min z bits, rgb of the winner) over all S·N entries.
+    ``tile_px`` and ``chunk`` (the TPU kernel's tiling) are accepted and
+    unused."""
+    del tile_px, chunk
+    _check_entries(pix, zbits, rgb, ndim=2)
+    return _sorted(pix, zbits, rgb, n_px, "zresolve_sorted_streams")
 
 
 def zresolve_winner_rgb(

@@ -39,6 +39,21 @@ def intrinsics_from_arrays(
     )
 
 
+def rig_intrinsics_from_arrays(
+    leaves, width: int, height: int, model=Distortion.NONE, device=None,
+) -> list:
+    """A rig's per-camera intrinsics sequence: ``leaves`` holds one
+    (ppx, ppy, fx, fy, coeffs) tuple per camera; width, height and the
+    distortion model are shared, as the rig requires."""
+    return [intrinsics_from_arrays(*leaf, width, height, model, device=device)
+            for leaf in leaves]
+
+
+def cam_to_virtual_from_array(cam_to_virtual, device=None) -> torch.Tensor:
+    """A rig's (N, 4, 4) camera→virtual transforms as one f32 tensor."""
+    return _f32(cam_to_virtual, device).reshape(-1, 4, 4)
+
+
 def extrinsics_from_arrays(rotation, translation, device=None) -> Extrinsics:
     return Extrinsics(
         _f32(rotation, device).reshape(3, 3), _f32(translation, device).reshape(3)

@@ -25,7 +25,9 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "pointcloud_depthfusion_tpu_torch.fusion.pipeline" in mods
+    for m in ("fusion.pipeline", "parallel.mesh", "io.feeder", "nodes.rig_node",
+              "utils.profiling", "io.artifacts"):
+        assert f"pointcloud_depthfusion_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -69,6 +71,37 @@ def test_cpu_pipeline_never_builds_kernels(monkeypatch):
     assert counters == before
 
 
+def test_cpu_rig_never_builds_kernels(monkeypatch):
+    """Every rig path on CPU tensors (tiled with and without the z-buffer,
+    multi-stream, packed, the color filters, batched) runs the plain
+    versions and counts no launch."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
+    from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene, rig_arc_poses
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda, zresolve_cuda
+    from pointcloud_depthfusion_tpu_torch.parallel.mesh import batched_rig_fuse, rig_fuse
+
+    monkeypatch.setattr(_build, "load", _refuse_build)
+    counters = (zresolve_cuda.launches, filters_cuda.launches)
+    before = tuple(dict(c) for c in counters)
+    intr = Intrinsics.create(32, 24, fx=25.0, fy=25.0, ppx=16.0, ppy=12.0, device="cpu")
+    poses = rig_arc_poses(4, toe_in_deg_per_m=37.5)
+    fs = [SyntheticScene().render(intr, p) for p in poses]
+    depth = torch.from_numpy(np.stack([f.depth for f in fs]).astype(np.int32))
+    color = torch.from_numpy(np.stack([f.color for f in fs]))
+    scale, c2v = torch.full((4,), 0.001), torch.from_numpy(np.stack(poses).astype(np.float32))
+    for mode, zbuf, multi, median in (("tiled", False, False, False), ("tiled", True, False, True),
+                                      ("tiled", True, True, False), ("packed", True, False, True)):
+        cfg = FusionConfig.create(render_mode=mode, emit_zbuf=zbuf, use_median_filter=median,
+                                  vertical_image=False, device="cpu")
+        assert rig_fuse(intr, intr, cfg, multi_stream=multi, device="cpu")(
+            depth, color, scale, c2v).shape == (24, 32, 3)
+        assert batched_rig_fuse(intr, intr, cfg, 2, 2, device="cpu")(
+            depth.reshape(2, 2, 24, 32), color.reshape(2, 2, 24, 32, 3), scale.reshape(2, 2),
+            c2v.reshape(2, 2, 4, 4)).shape == (2, 24, 32, 3)
+    assert counters == before
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
@@ -108,11 +141,17 @@ def test_entry_points_default_to_the_card():
     from pointcloud_depthfusion_tpu_torch.core.camera import Extrinsics, Intrinsics
     from pointcloud_depthfusion_tpu_torch.core.frameset import Frameset
     from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, FusionPipeline
+    from pointcloud_depthfusion_tpu_torch.io.feeder import RigFeeder, SyntheticSource
+    from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene
+    from pointcloud_depthfusion_tpu_torch.nodes.rig_node import RigFusionNodeApp
+    from pointcloud_depthfusion_tpu_torch.parallel.mesh import batched_rig_fuse, rig_fuse
     from pointcloud_depthfusion_tpu_torch.registration.pipeline import RegistrationPipeline
     from pointcloud_depthfusion_tpu_torch.utils import convert
 
     host = Intrinsics.create(8, 6, 5.0, 5.0, 4.0, 3.0, device="cpu")
     depth, color = np.zeros((6, 8), np.uint16), np.zeros((6, 8, 3), np.uint8)
+    sources = [SyntheticSource(SyntheticScene(), host, np.eye(4), seed=i) for i in range(2)]
+    cpu_cfg = FusionConfig.create(device="cpu")
     calls = {
         "Intrinsics.create": lambda: Intrinsics.create(8, 6, 5.0, 5.0, 4.0, 3.0).fx,
         "Extrinsics.identity": lambda: Extrinsics.identity().rotation,
@@ -121,6 +160,12 @@ def test_entry_points_default_to_the_card():
         "FusionPipeline": lambda: FusionPipeline(host, FusionConfig.create(device="cpu")).right_transform,
         "RegistrationPipeline": lambda: RegistrationPipeline(host, host).intr_left.fx,
         "convert.pose_from_array": lambda: convert.pose_from_array(np.eye(4)),
+        "convert.cam_to_virtual_from_array":
+            lambda: convert.cam_to_virtual_from_array(np.eye(4)[None]),
+        "rig_fuse": lambda: rig_fuse(host, host, cpu_cfg),
+        "batched_rig_fuse": lambda: batched_rig_fuse(host, host, cpu_cfg, 2, 2),
+        "RigFeeder": lambda: RigFeeder(sources),
+        "RigFusionNodeApp": lambda: RigFusionNodeApp(sources, host, np.eye(4)[None].repeat(2, 0)),
     }
     for name, call in calls.items():
         if torch.cuda.is_available():

@@ -1,4 +1,4 @@
-"""The port's plain z-resolve (kernels B1/B2) against the JAX package's
+"""The port's plain z-resolve (kernels B1/B2/B7) against the JAX package's
 Pallas kernels, run in the interpreter on the CPU. Bit-exact.
 
 Inputs stay inside the contract: an entry on a real pixel never carries
@@ -11,6 +11,7 @@ import torch
 
 from pointcloud_depthfusion_tpu.ops.pallas.zresolve_pallas import (
     zresolve_sorted_entries as jax_sorted_entries,
+    zresolve_sorted_streams as jax_sorted_streams,
     zresolve_winner_rgb as jax_winner_rgb,
 )
 from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
@@ -97,6 +98,38 @@ def test_winner_rgb_plain_bit_exact(case):
         _t(pix), _t(z), _t(rgb), n_px).numpy())
 
 
+STREAM_CASES = {
+    # name: (seed, streams S, entries per stream N, n_px, z range)
+    "one_stream": (4, 1, 900, 300, 30),
+    "three_streams": (5, 3, 500, 400, 30),
+}
+
+
+@pytest.mark.parametrize("with_rgb", [True, False], ids=["rgb", "depth_only"])
+@pytest.mark.parametrize("case", sorted(STREAM_CASES))
+def test_sorted_streams_plain_bit_exact(case, with_rgb):
+    """B7: (S, N) streams, each with duplicate pixels, z ties broken by rgb,
+    empty pixels, invalid entries and pixel ids past n_px, against the JAX
+    multi-stream kernel."""
+    seed, s, n, n_px, zr = STREAM_CASES[case]
+    pix, z, rgb = _entries(seed, s * n, n_px, zr)
+    rng = np.random.default_rng(seed + 100)
+    past = rng.random(s * n) < 0.03
+    pix[past] = n_px + rng.integers(0, 200, int(past.sum()))  # beyond n_px, inside and past the pad
+    pix, z, rgb = (a.reshape(s, n) for a in (pix, z, rgb))
+    r = rgb if with_rgb else None
+    want_z, want_r = jax_sorted_streams(jnp.asarray(pix), jnp.asarray(z),
+                                        None if r is None else jnp.asarray(r), n_px,
+                                        tile_px=128, chunk=256, interpret=True)
+    got_z, got_r = Z.zresolve_sorted_streams(_t(pix), _t(z), None if r is None else _t(r), n_px)
+    np.testing.assert_array_equal(got_z.numpy(), np.asarray(want_z))
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+    flat = Z.zresolve_sorted_entries(_t(pix.reshape(-1)), _t(z.reshape(-1)),
+                                     None if r is None else _t(r.reshape(-1)), n_px)
+    assert all(torch.equal(a, b) for a, b in zip(flat, (got_z, got_r)))
+    assert (got_z.numpy() == MAXI).any() and (got_z.numpy() != MAXI).any()
+
+
 def test_tie_break_and_empty_by_hand():
     pix = np.array([2, 2, 2, 0, Z.INVALID_PIX, 5], np.int32)
     z = np.array([7, 7, 9, -3, MAXI, 1], np.int32)
@@ -112,6 +145,8 @@ def test_cpu_wrappers_use_plain_and_count_no_launch():
     Z.zresolve_winner_rgb(_t(pix), _t(z), _t(rgb), 100)
     Z.zresolve_sorted_entries(_t(pix), _t(z), None, 100)
     Z.zresolve_sorted_entries(_t(pix), _t(z), _t(rgb), 100, legacy_feed=True)
+    Z.zresolve_sorted_streams(_t(pix).reshape(3, 200), _t(z).reshape(3, 200),
+                              _t(rgb).reshape(3, 200), 100)
     assert Z.launches == before
 
 
@@ -126,3 +161,10 @@ def test_wrappers_reject_bad_inputs():
     meta = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         Z.zresolve_winner_rgb(meta, meta, meta, 8)
+    streams = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\(S, N\) int32"):
+        Z.zresolve_sorted_streams(pix, pix, None, 8)
+    with pytest.raises(ValueError, match=r"\(S, N\) int32"):
+        Z.zresolve_sorted_streams(streams, streams, streams[:1], 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        Z.zresolve_sorted_streams(streams, streams.t().contiguous().t(), None, 8)
