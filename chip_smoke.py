@@ -20,7 +20,13 @@ before and read just after:
         against the CPU, ``batched_rig_fuse`` against per-stream
         ``rig_fuse``, and ``RigFusionNodeApp.run`` (4 cameras, inline
         calibration sweeps) against the CPU, and against the rig's truth at
-        the deployment's 424×240.
+        the deployment's 424×240;
+  [13]  kernel B6 against its plain version, ``filter_depth`` with
+        morphology (4 B6 launches a call) and the other depth filters
+        against the CPU, the dual deployment ``launch.run_deployment``
+        (CameraNode → DeviceFeeder → FusionNodeApp with RegistrationNodeApp
+        ticks → ImageNode) on the card and against the CPU, and
+        ``FusionNodeApp.run`` over prerendered frames, timed.
 
 It times frames, ticks and kernels with CUDA events and a host clock ending
 in ``synchronize()``, and profiles one warm tick. Any failure raises and
@@ -35,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -54,6 +61,7 @@ REPLACES = {
     "segsum_sorted": "pointcloud_depthfusion_tpu/ops/pallas/segsum_pallas.py:42",
     "fuse_prep": "pointcloud_depthfusion_tpu/ops/pallas/fuse_prep_pallas.py:43",
     "zresolve_sorted_streams": "pointcloud_depthfusion_tpu/ops/pallas/zresolve_pallas.py:500",
+    "morph_plane": "pointcloud_depthfusion_tpu/ops/pallas/filters_pallas.py:158",
     # Not a Pallas kernel: the XLA scatter-min of the packed, indexed and
     # pallas modes, which torch cannot compute on uint32 keys.
     "scatter_min_u32": "pointcloud_depthfusion_tpu/ops/render.py:218",
@@ -67,6 +75,7 @@ SOURCES = {
     "segsum_sorted": "pointcloud_depthfusion_tpu_torch/csrc/segsum.cu",
     "fuse_prep": "pointcloud_depthfusion_tpu_torch/csrc/fuse_prep.cu",
     "zresolve_sorted_streams": "pointcloud_depthfusion_tpu_torch/csrc/zresolve.cu",
+    "morph_plane": "pointcloud_depthfusion_tpu_torch/csrc/morph.cu",
     "scatter_min_u32": "pointcloud_depthfusion_tpu_torch/csrc/zresolve.cu",
 }
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory and
@@ -144,6 +153,20 @@ NODE_TRUTH_M, NODE_TRUTH_DEG = 0.03, 1.5
 # loaded as a trusted calibration, which the warm sweeps refine.
 NODE_COLD_GUESS = (2.0, 0.03)
 NODE_LOADED_GUESS = (0.5, 0.01)
+# Phase 13, the dual deployment: run_deployment of configs/deployment_dual.yaml
+# at each size for DEPLOY_FRAMES frames with registration every
+# DEPLOY_EVERY (its own cadence, 15), then card-vs-CPU runs of
+# DEPLOY_CMP_FRAMES frames with registration off and every DEPLOY_CMP_EVERY;
+# the viewer saves every DEPLOY_SAVE_EVERY-th frame. FusionNodeApp.run over
+# prerendered frames is timed over REPLAY_FRAMES frames.
+DEPLOY_SIZES = ((848, 480), (1280, 720))
+DEPLOY_FRAMES = 30
+DEPLOY_EVERY = 15
+DEPLOY_CMP_FRAMES = 3
+DEPLOY_CMP_EVERY = 2
+DEPLOY_SAVE_EVERY = 8
+REPLAY_FRAMES = 30
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -187,11 +210,11 @@ def bound(n_bytes: float, n_ops: float) -> tuple:
 
 def _counters() -> tuple:
     from pointcloud_depthfusion_tpu_torch.ops.cuda import (
-        filters_cuda, fuse_prep_cuda, segsum_cuda, zresolve_cuda,
+        filters_cuda, fuse_prep_cuda, morph_cuda, segsum_cuda, zresolve_cuda,
     )
 
     return (zresolve_cuda.launches, filters_cuda.launches, segsum_cuda.launches,
-            fuse_prep_cuda.launches)
+            fuse_prep_cuda.launches, morph_cuda.launches)
 
 
 def reset_launches() -> None:
@@ -1469,6 +1492,422 @@ def phase_rig(card: str, errs: dict) -> tuple:
     return launches, streams, {**frame_ms, **metrics}
 
 
+# -- phase 13: morphology (B6), the depth filters, the dual deployment ---------
+
+
+def morph_masks(scene: Scene, g: torch.Generator) -> dict:
+    """B6's inputs at the scene's size: a random mask, the scene's own
+    depth-validity masks (the filter's input, with holes), and the edge
+    cases: all 0, all 1, single-pixel rows and columns."""
+    h, w = scene.h, scene.w
+    depth = torch.from_numpy(scene.frames[0][0].depth.astype(np.int32)).to(DEVICE)
+    lines = torch.zeros((h, w), dtype=torch.uint8, device=DEVICE)
+    lines[h // 2, :] = 1
+    lines[:, w // 3] = 1
+    lines[0, :] = 1
+    lines[:, w - 1] = 1
+    return {
+        "random": torch.randint(0, 2, (h, w), generator=g, device=DEVICE, dtype=torch.uint8),
+        "depth>0": (depth > 0).to(torch.uint8),
+        "depth in 0.5-3 m": ((depth >= 500) & (depth <= 3000)).to(torch.uint8),
+        "zeros": torch.zeros((h, w), dtype=torch.uint8, device=DEVICE),
+        "ones": torch.ones((h, w), dtype=torch.uint8, device=DEVICE),
+        "lines": lines,
+    }
+
+
+def phase_morph(scenes, errs: dict) -> tuple:
+    """(a) B6 bit-exact to its plain version on the card; (b)
+    ``filter_depth(use_morphology=True)`` on the card bit-identical to the
+    CPU, with the launch counts of (b) alone. Returns (B6's launches in
+    (b), the number of card calls)."""
+    from pointcloud_depthfusion_tpu_torch.ops import filters as F
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import morph_cuda as B6
+
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    for scene in scenes:
+        for kind, m in morph_masks(scene, g).items():
+            for dilate in (False, True):
+                got, want = B6.morph_plane(m, dilate), B6.morph_plane_plain(m, dilate)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                errs["morph_plane"] = max(errs["morph_plane"], err)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"B6 differs from plain on {kind} {scene.w}x{scene.h} "
+                                         f"dilate={dilate}: {err}")
+        log(f"[13a] morph_plane {scene.w}x{scene.h}: erosion and dilation bit-exact on "
+            f"random/depth>0/depth in 0.5-3 m/zeros/ones/lines")
+    reset_launches()
+    calls = 0
+    filter_ms = {}
+    for scene in scenes:
+        for roi in (None, (40, 20, scene.w - 120, scene.h - 60)):
+            for k, pair in enumerate(scene.frames):
+                for f in pair:
+                    before = read_launches()["morph_plane"]
+                    out = {}
+                    for dev in (DEVICE, "cpu"):
+                        out[dev] = F.filter_depth(
+                            torch.from_numpy(f.depth.astype(np.int32)).to(dev),
+                            torch.tensor(f.depth_scale, device=dev),
+                            torch.tensor(0.5, device=dev), torch.tensor(3.0, device=dev), roi,
+                            use_morphology=True)
+                    torch.cuda.synchronize()
+                    calls += 1
+                    n = read_launches()["morph_plane"] - before
+                    (dg, vg), (dc, vc) = out[DEVICE], out["cpu"]
+                    same = torch.equal(dg.cpu(), dc) and torch.equal(vg.cpu(), vc)
+                    closed_holes = int((vc & (dc == 0)).sum())
+                    if not same or n != 4:
+                        raise AssertionError(f"filter_depth(use_morphology=True) "
+                                             f"{scene.w}x{scene.h} roi={roi}: card==CPU {same}, "
+                                             f"{n} B6 launches")
+            log(f"[13b] filter_depth(use_morphology=True) dual {scene.w}x{scene.h} roi={roi}: "
+                f"card bit-identical to the CPU on {2 * len(scene.frames)} frames, 4 B6 launches "
+                f"each; valid {float(vc.float().mean()):.4f}, closed-in pixels with depth 0 "
+                f"{closed_holes} (the JAX order, reproduced)")
+    launches = read_launches()
+    log(f"[13b] launches {launches}, expected morph_plane {4 * calls} and no other")
+    if launches["morph_plane"] != 4 * calls or sum(launches.values()) != 4 * calls:
+        raise AssertionError(f"[13b] launch counts {launches}")
+    return launches["morph_plane"], calls
+
+
+def time_morph(scenes, card: str) -> tuple:
+    """B6 against its plain version and the nearest library composition
+    (max_pool2d over 3×5 and 5×3, then maximum: no one PyTorch call has
+    the 21-point element), and filter_depth(use_morphology=True), at each
+    size. Returns (B6's row at the last size, {size: filter_depth ms})."""
+    import torch.nn.functional as NF
+
+    from pointcloud_depthfusion_tpu_torch.ops import filters as F
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import morph_cuda as B6
+
+    row, filter_ms = None, {}
+    for scene in scenes:
+        f = scene.frames[0][0]
+        depth = torch.from_numpy(f.depth.astype(np.int32)).to(DEVICE)
+        mask = (depth > 0).to(torch.uint8)
+        try:
+            NF.max_pool2d(mask[None, None], (3, 5), 1, (1, 2))
+            lib_in, lib_dtype = mask[None, None], "uint8"
+        except RuntimeError:
+            lib_in, lib_dtype = mask[None, None].float(), "float32 (uint8 not taken)"
+
+        def library():
+            return torch.maximum(NF.max_pool2d(lib_in, (3, 5), 1, (1, 2)),
+                                 NF.max_pool2d(lib_in, (5, 3), 1, (2, 1)))
+
+        same = torch.equal(library()[0, 0].to(torch.uint8), B6.morph_plane(mask, True))
+        lib_ms = cuda_ms(library, 50)
+        k, p, each = turns(lambda: B6.morph_plane(mask, True),
+                           lambda: B6.morph_plane_plain(mask, True), iters=50)
+        # 1 B in and 1 B out per pixel; 20 min/max per pixel.
+        b_ms, b_by = bound(2 * mask.numel(), 20 * mask.numel())
+        scale, lo, hi = (torch.tensor(v, device=DEVICE) for v in (f.depth_scale, 0.5, 3.0))
+        fd = cuda_ms(lambda: F.filter_depth(depth, scale, lo, hi, use_morphology=True), 20)
+        plain_fd = cuda_ms(lambda: F.filter_depth(depth, scale, lo, hi), 20)
+        filter_ms[f"{scene.w}x{scene.h}"] = fd
+        log(f"[13] morph_plane at one {scene.w}x{scene.h} u8 mask: kernel {k:.5f} ms "
+            f"({each[0]:.5f}, {each[1]:.5f}), plain {p:.5f} ms ({each[2]:.5f}, {each[3]:.5f}), "
+            f"library {lib_ms:.5f} ms (3 calls: max_pool2d 3x5 and 5x3, maximum; on {lib_dtype}; "
+            f"equal to B6's dilation: {same}), bound {b_ms:.5f} ms by {b_by}; "
+            f"filter_depth(use_morphology=True) {fd:.5f} ms, without {plain_fd:.5f} ms on {card}")
+        row = (k, p, lib_ms, b_ms, b_by)
+    return row, filter_ms
+
+
+def phase_depth_filters(scene: Scene, card: str) -> dict:
+    """(c) Every other A10 function on the card and on the CPU on the
+    scene's depth: bit-identical, except the bilateral filter (the card's
+    expf may round differently from the CPU's: ±1 raw unit on at most
+    PIXEL_BUDGET of pixels). Times each on the card: {name: ms}."""
+    from pointcloud_depthfusion_tpu_torch.ops import filters as F
+
+    d0, d1 = (f.depth.astype(np.int32) for f in (scene.frames[0][0], scene.frames[1][0]))
+    color = scene.frames[0][0].color
+    fx = 631.0 * scene.w / 848.0
+    cases = {
+        "mask_count": lambda d, p, c: F.mask_count(d > 0),
+        "median_filter 5x5 u16": lambda d, p, c: F.median_filter(d, 2, interior_roi=False),
+        "median_filter 3x3 u16 interior": lambda d, p, c: F.median_filter(d, 1),
+        "gauss_filter 5x5 u16": lambda d, p, c: F.gauss_filter(d, 5, interior_roi=False),
+        "gauss_filter 5x5 u8 color": lambda d, p, c: F.gauss_filter(c, 5),
+        "temporal_filter": lambda d, p, c: F.temporal_filter(d, p)[0],
+        "hole_fill left": lambda d, p, c: F.hole_fill(d, "left"),
+        "hole_fill farthest": lambda d, p, c: F.hole_fill(d, "farthest"),
+        "hole_fill nearest": lambda d, p, c: F.hole_fill(d, "nearest"),
+        "decimation_filter 2": lambda d, p, c: F.decimation_filter(d, 2),
+        "depth_to_disparity": lambda d, p, c: F.depth_to_disparity(d, 0.001, fx),
+        "disparity_to_depth": lambda d, p, c: F.disparity_to_depth(
+            F.depth_to_disparity(d, 0.001, fx), 0.001, fx),
+        "spatial_filter": lambda d, p, c: F.spatial_filter(d),
+        "spatial_filter holes_fill 3": lambda d, p, c: F.spatial_filter(d, holes_fill=3),
+        "spatial_filter disparity": lambda d, p, c: F.spatial_filter(
+            F.depth_to_disparity(d, 0.001, fx), 0.5, 8.0, 1),
+        "bilateral_filter_depth": lambda d, p, c: F.bilateral_filter_depth(d),
+    }
+    inputs = {dev: (torch.from_numpy(d0).to(dev), torch.from_numpy(d1).to(dev),
+                    torch.from_numpy(color).to(dev)) for dev in (DEVICE, "cpu")}
+    out = {}
+    for name, fn in cases.items():
+        got = fn(*inputs[DEVICE])
+        torch.cuda.synchronize()
+        want = fn(*inputs["cpu"])
+        diff = (got.cpu().to(torch.float64) - want.to(torch.float64)).abs()
+        share = float((diff > 0).float().mean()) if diff.numel() else 0.0
+        slow = name.startswith(("spatial", "bilateral"))
+        ms = cuda_ms(lambda: fn(*inputs[DEVICE]), 1 if slow else 10, 1 if slow else 3)
+        out[name] = ms
+        log(f"[13c] {name} {scene.w}x{scene.h}: card vs CPU max|d|={float(diff.max()):.6g} on "
+            f"{share:.6g} of outputs; {ms:.5f} ms on {card}")
+        if name == "bilateral_filter_depth":
+            if float(diff.max()) > 1 or share > PIXEL_BUDGET:
+                raise AssertionError(f"{name}: card vs CPU {float(diff.max())} on {share}")
+        elif share:
+            raise AssertionError(f"{name}: card differs from the CPU on {share} of outputs")
+    return out
+
+
+def deployment_manifest(w: int, h: int, frames: int, every: int, out_dir: str,
+                        overrides: dict = None) -> dict:
+    """configs/deployment_dual.yaml at w×h, ``frames`` frames, registration
+    every ``every`` (0: off), the viewer in ``out_dir``; ``overrides``
+    {"cameras"|"fusion"|"registration": override yaml path} for those
+    config tiers."""
+    from pointcloud_depthfusion_tpu_torch.nodes.launch import load_manifest
+
+    m = dict(load_manifest(os.path.join(REPO, "configs", "deployment_dual.yaml")))
+    overrides = overrides or {}
+    if "cameras" in overrides:
+        m["cameras"] = [dict(c, config=overrides["cameras"]) for c in m["cameras"]]
+    if "fusion" in overrides:
+        m["fusion"] = {"config": overrides["fusion"]}
+    reg = {"every_n_frames": every}
+    if "registration" in overrides:
+        reg["config"] = overrides["registration"]
+    m.update(width=w, height=h, frames=frames, registration=reg,
+             viewer={"out_dir": out_dir, "every_n": DEPLOY_SAVE_EVERY})
+    return m
+
+
+def run_deployment_recorded(manifest: dict, dev) -> tuple:
+    """``run_deployment`` on ``dev``, recording every fused image the viewer
+    receives: (summary, [(stamp, image)], wall s ending in synchronize)."""
+    from pointcloud_depthfusion_tpu_torch.nodes import image_node, launch
+
+    seen = []
+    orig = image_node.ImageNode.__call__
+
+    def record(self, image, ts):
+        seen.append((ts, np.array(image)))
+        orig(self, image, ts)
+
+    image_node.ImageNode.__call__ = record
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = launch.run_deployment(manifest, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        image_node.ImageNode.__call__ = orig
+    return summary, seen, wall
+
+
+def deployment_expected(summary: dict) -> dict:
+    """A card deployment's launches: B2 and three B4 planes per fused frame
+    (fusion_default.yaml: tiled with the z-buffer, Gauss tail); B5 4 per
+    rebuilt target grid and 2 per cached tick."""
+    frames, ticks, rebuilds = (summary[k] for k in ("frames", "registration_ticks",
+                                                    "registration_grid_rebuilds"))
+    return {"zresolve_sorted_entries": frames, "gauss3x3_plane": 3 * frames,
+            "segsum_sorted": 4 * rebuilds + 2 * (ticks - rebuilds)}
+
+
+def phase_deployment(tmp: str, card: str) -> tuple:
+    """(d) ``run_deployment`` with the dual manifest at each size: on the
+    card for DEPLOY_FRAMES frames with registration every DEPLOY_EVERY
+    (every frame fused, the summary sane, PNGs written); with registration
+    off, card and CPU from the same seeds, fused images within
+    PIXEL_BUDGET; with registration on (every DEPLOY_CMP_EVERY), the last
+    transform within TRANSFORM_ATOL of the CPU run's. The comparison runs
+    use override configs: the fusion tier keeps every pair (QoS lifespan
+    off, so the CPU's slower frames drop none); for the registration
+    comparison the cameras render without noise or holes, so the pair the
+    registration node ticks on (the latest the feeder thread has captured,
+    which differs run to run) does not matter, and the stereo angle gate
+    is off (the rig's 10° toe-in fails it, as in phase 8), so the compared
+    transform is the solver's and not the identity kept by a discard.
+    Returns (expected launches, {metric: value})."""
+    import os
+
+    fusion_yaml = os.path.join(tmp, "fusion_keep_all.yaml")
+    with open(fusion_yaml, "w") as fh:
+        fh.write("fusion_node:\n  qos: {lifespan_s: 0}\n")
+    reg_yaml = os.path.join(tmp, "registration_no_angle_gate.yaml")
+    with open(reg_yaml, "w") as fh:
+        fh.write("registration_node:\n  angle_gate: false\n")
+    clean_yaml = os.path.join(tmp, "cameras_clean.yaml")
+    with open(clean_yaml, "w") as fh:
+        fh.write("".join(f"{n}:\n  sensor:\n    depth: {{depth_noise_std: 0.0, "
+                         f"hole_fraction: 0.0}}\n" for n in ("camera_left", "camera_right")))
+    expected = {}
+    metrics = {}
+
+    def add(summary):
+        for k, v in deployment_expected(summary).items():
+            expected[k] = expected.get(k, 0) + v
+
+    for w, h in DEPLOY_SIZES:
+        size = f"{w}x{h}"
+        out_dir = os.path.join(tmp, f"live_{size}")
+        summary, seen, wall = run_deployment_recorded(
+            deployment_manifest(w, h, DEPLOY_FRAMES, DEPLOY_EVERY, out_dir), DEVICE)
+        add(summary)
+        pngs = sorted(os.listdir(out_dir))
+        coverage = min(float(img.any(-1).mean()) for _, img in seen)
+        log(f"[13d] run_deployment dual {size} on the card: {json.dumps(summary)}; "
+            f"{len(seen)} frames in {wall:.3f} s ({len(seen) / wall:.3f} frames/s live, the "
+            f"numpy renderer in the loop), min coverage {coverage:.4f}, {len(pngs)} PNGs on {card}")
+        if (summary["frames"] != DEPLOY_FRAMES or len(seen) != DEPLOY_FRAMES
+                or summary["fused_shape"] != [w, h, 3] or coverage < 0.5
+                or summary["registration_ticks"] != -(-DEPLOY_FRAMES // DEPLOY_EVERY)
+                or not np.isfinite(summary["registration_fitness"])
+                or len(pngs) != summary["saved_pngs"] or not pngs):
+            raise AssertionError(f"deployment {size}: {summary}, {len(seen)} frames, "
+                                 f"{len(pngs)} PNGs")
+        metrics[f"deployment_{size}_fps_live"] = len(seen) / wall
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            runs[dev] = run_deployment_recorded(deployment_manifest(
+                w, h, DEPLOY_CMP_FRAMES, 0, os.path.join(tmp, f"off_{size}_{dev}"),
+                {"fusion": fusion_yaml}), dev)
+        add(runs[DEVICE][0])
+        worst = 0.0
+        for (tg, ig), (tc, ic) in zip(runs[DEVICE][1], runs["cpu"][1]):
+            if tg != tc:
+                raise AssertionError(f"deployment {size}: card frame {tg} vs CPU frame {tc}")
+            worst = max(worst, float((ig != ic).any(-1).mean()))
+        log(f"[13d] registration off, {DEPLOY_CMP_FRAMES} frames, card vs CPU: fused images "
+            f"differ on at most {worst:.6g} of pixels (budget {PIXEL_BUDGET})")
+        if len(runs[DEVICE][1]) != DEPLOY_CMP_FRAMES or worst > PIXEL_BUDGET:
+            raise AssertionError(f"deployment {size}: card vs CPU {worst}")
+        metrics[f"deployment_{size}_card_vs_cpu_pixels"] = worst
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            runs[dev] = run_deployment_recorded(deployment_manifest(
+                w, h, DEPLOY_CMP_FRAMES, DEPLOY_CMP_EVERY, os.path.join(tmp, f"on_{size}_{dev}"),
+                {"fusion": fusion_yaml, "cameras": clean_yaml, "registration": reg_yaml}), dev)
+        add(runs[DEVICE][0])
+        tg, tc = (np.asarray(runs[d][0]["registration_transform"]) for d in (DEVICE, "cpu"))
+        diff = float(np.abs(tg - tc).max())
+        frames_differ = max(float((a != b).any(-1).mean())
+                            for (_, a), (_, b) in zip(runs[DEVICE][1], runs["cpu"][1]))
+        log(f"[13d] registration every {DEPLOY_CMP_EVERY}, {DEPLOY_CMP_FRAMES} frames, clean "
+            f"cameras, no angle gate: last transform card vs CPU max|d|={diff:.3g} (bar "
+            f"{TRANSFORM_ATOL}), its distance from the identity {np.abs(tc - np.eye(4)).max():.3g}; "
+            f"fitness card {runs[DEVICE][0]['registration_fitness']:.9g} CPU "
+            f"{runs['cpu'][0]['registration_fitness']:.9g}; fused frames differ on at most "
+            f"{frames_differ:.6g} of pixels")
+        if diff > TRANSFORM_ATOL:
+            raise AssertionError(f"deployment {size}: card vs CPU transform {diff}")
+        metrics[f"deployment_{size}_transform_card_vs_cpu"] = diff
+    return expected, metrics
+
+
+def phase_node_timing(scenes, tmp: str, card: str) -> tuple:
+    """(e) FusionNodeApp.run over prerendered frames replayed through
+    CameraNodes, REPLAY_FRAMES frames at each size: frames/s with
+    async_readback on and off, then one profiled pass (process_profiled)
+    with its stage laps and upload_ms. Returns (expected launches,
+    {metric: value})."""
+    import os
+
+    from pointcloud_depthfusion_tpu_torch.nodes.camera_node import CameraNode
+    from pointcloud_depthfusion_tpu_torch.nodes.fusion_node import FusionNodeApp
+    from pointcloud_depthfusion_tpu_torch.utils.factory import fusion_config
+
+    from pointcloud_depthfusion_tpu_torch.core.frameset import HostFrameset
+
+    metrics, frames = {}, 0
+    for scene in scenes:
+        size = f"{scene.w}x{scene.h}"
+        intr, _ = framesets(scene, "cpu")
+        # The scene's frame pairs in a loop, stamped k/30 s.
+        streams = [[HostFrameset(f.depth, f.color, k / 30.0, f.depth_scale)
+                    for k in range(REPLAY_FRAMES)
+                    for f in [scene.frames[k % len(scene.frames)][i]]] for i in range(2)]
+        for mode in ("sync readback", "async readback", "profiled"):
+            cams = [CameraNode(name, ReplaySource(streams[i], intr))
+                    for i, name in enumerate(("camera_left", "camera_right"))]
+            cfg, _ = fusion_config(device=DEVICE)
+            prof = os.path.join(tmp, f"profile_{size}.csv") if mode == "profiled" else None
+            app = FusionNodeApp(*cams, config=cfg, device=DEVICE,
+                                async_readback=mode == "async readback", profiling_path=prof)
+            app.on_transform(scene.t_rl)
+            uploads = []
+            process = app.process_pair
+
+            def timed(pair, process=process, uploads=uploads):
+                uploads.append(pair.upload_ms)
+                return process(pair)
+
+            app.process_pair = timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = app.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            frames += done
+            if done != REPLAY_FRAMES:
+                raise AssertionError(f"node {size} {mode}: {done} frames")
+            fps = done / wall
+            metrics[f"node_{size}_{mode.replace(' ', '_')}_fps"] = fps
+            log(f"[13e] FusionNodeApp.run {size} {mode}: {done} frames in {wall:.3f} s "
+                f"({fps:.3f} frames/s), upload_ms mean {np.mean(uploads):.4f} min "
+                f"{np.min(uploads):.4f} max {np.max(uploads):.4f} on {card}")
+            metrics[f"node_{size}_{mode.replace(' ', '_')}_upload_ms_mean"] = float(np.mean(uploads))
+            if prof:
+                with open(prof) as fh:
+                    rows = [line.strip().split(",") for line in fh]
+                head, vals = rows[0], np.asarray(rows[2:], np.float64)  # skip the first frame
+                laps = {k: float(v) for k, v in zip(head, vals.mean(0))}
+                log(f"[13e] process_profiled {size}, mean of frames 2-{len(rows) - 1} (ms): "
+                    + " ".join(f"{k}={v:.4f}" for k, v in laps.items()) + f" on {card}")
+                metrics[f"node_{size}_laps_ms"] = laps
+    # Each fused frame: B2 and three B4 planes (tiled with the z-buffer).
+    return {"zresolve_sorted_entries": frames, "gauss3x3_plane": 3 * frames}, metrics
+
+
+def phase_filters_and_deployment(scenes, card: str, errs: dict) -> tuple:
+    """Phase 13. Returns (launches of each kernel on its main paths here,
+    B6's timing row, {metric: value})."""
+    import tempfile
+
+    morph_launches, calls = phase_morph(scenes, errs)
+    filter_ms = phase_depth_filters(scenes[0], card)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        expected = {k: 0 for k in read_launches()}
+        dep_expected, metrics = phase_deployment(tmp, card)
+        node_expected, node_metrics = phase_node_timing(scenes, tmp, card)
+        for part in (dep_expected, node_expected):
+            for k, v in part.items():
+                expected[k] += v
+        torch.cuda.synchronize()
+        launches = read_launches()
+    log(f"[13d-e] launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != expected {expected}")
+    launches["morph_plane"] = morph_launches
+    row, fd_ms = time_morph(scenes, card)
+    metrics.update(node_metrics)
+    log(f"[13] summary filters ms {json.dumps(filter_ms)} filter_depth+morphology ms "
+        f"{json.dumps(fd_ms)} deployment {json.dumps(metrics)} on {card}")
+    return launches, row, metrics
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run",
@@ -1478,6 +1917,7 @@ def main() -> int:
     from pointcloud_depthfusion_tpu_torch.utils.factory import registration_settings
 
     # [0] device
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     nvcc = _build.find_nvcc()
@@ -1490,7 +1930,7 @@ def main() -> int:
     # [1] build
     t0 = time.perf_counter()
     _build.load()
-    log(f"[1] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[1] build: {time.perf_counter() - t0:.2f} s (done at {time.perf_counter() - t_start:.1f} s)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[1] ptxas: {line.strip()}")
@@ -1530,6 +1970,7 @@ def main() -> int:
     if mode_launches != expected:
         raise AssertionError(f"launch counts {mode_launches} != expected {expected}")
 
+    log(f"[11] done at {time.perf_counter() - t_start:.1f} s")
     # [7] B5 against its plain version on the registration clouds
     reg_scenes = [s for s in (scene_848, scene_720) if (s.w, s.h) in REG_SIZES]
     phase_segsum(reg_scenes, errs)
@@ -1555,9 +1996,17 @@ def main() -> int:
     if reg_launches != expected or reg_launches["segsum_sorted"] < 1:
         raise AssertionError(f"launch counts {reg_launches} != expected {expected}")
 
+    log(f"[8] done at {time.perf_counter() - t_start:.1f} s")
     # [12] the N-camera rig: B7, rig_fuse, batched_rig_fuse and the rig node;
     # the launch counts cover exactly its main path.
     rig_launches, streams_timing, _ = phase_rig(card, errs)
+    log(f"[12] done at {time.perf_counter() - t_start:.1f} s")
+
+    # [13] B6, filter_depth with morphology, the other depth filters, and the
+    # dual deployment; the launch counts cover exactly its main paths.
+    filt_launches, morph_timing, _ = phase_filters_and_deployment((scene_848, scene_720), card,
+                                                                  errs)
+    log(f"[13] done at {time.perf_counter() - t_start:.1f} s")
 
     # [6], [9] timing
     frame_ms = {**time_pipeline(scene_848, card), **time_pipeline(scene_720, card),
@@ -1576,14 +2025,15 @@ def main() -> int:
         tick_ms[tag]["profile"] = profile_tick(pipe, scene, card)
     seg = time_segsum(reg_scenes, card)
     log(f"[9] summary ms/tick {json.dumps(tick_ms)} on {card}")
+    log(f"[6], [9] done at {time.perf_counter() - t_start:.1f} s")
     k, p, _, b_ms, b_by = seg[f"dual {reg_scenes[-1].w}x{reg_scenes[-1].h} cloud at 0.01 m"]
 
     launches = {k: fusion_launches[k] + mode_launches[k] + reg_launches[k] + rig_launches[k]
-                for k in fusion_launches}
+                + filt_launches[k] for k in fusion_launches}
     # No one PyTorch call computes both halves of B5 (the sums and the
     # representative); index_add_'s time for the sums alone is logged above.
     timing = {**kernel_ms, "segsum_sorted": (k, p, None, b_ms, b_by),
-              "zresolve_sorted_streams": streams_timing}
+              "zresolve_sorted_streams": streams_timing, "morph_plane": morph_timing}
     log(card)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

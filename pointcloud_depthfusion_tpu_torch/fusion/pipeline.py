@@ -150,17 +150,63 @@ def _check_config(config: FusionConfig) -> None:
         )
 
 
-def _prepare_camera(fs: Frameset, roi, config: FusionConfig, footprint):
-    """Per-camera stage: [align] → filter → deproject (planar). Returns
-    (x, y, z, valid) planes."""
+def _filter_camera(fs: Frameset, roi, config: FusionConfig, footprint):
+    """Per-camera filter stage: [align] → filter. Returns (depth, valid)."""
     depth = fs.depth
     if config.align_frames:
         depth = align_depth_to_color(depth, fs.depth_scale, fs.depth_intrinsics,
                                      fs.color_intrinsics, fs.depth_to_color,
                                      max_footprint=footprint)
-    depth, valid = F.filter_depth(depth, fs.depth_scale, config.min_depth, config.max_depth, roi)
+    return F.filter_depth(depth, fs.depth_scale, config.min_depth, config.max_depth, roi)
+
+
+def _deproject_camera(fs: Frameset, depth: torch.Tensor, valid: torch.Tensor):
+    """Per-camera deprojection: (x, y, z, valid) planes."""
     depth_m = depth.to(torch.float32) * fs.depth_scale
     return G.deproject_planar(depth_m, fs.color_intrinsics, valid)
+
+
+def _merge(left: Frameset, right: Frameset, xyz_l, xyz_r, val_l, val_r):
+    """Stack the two posed clouds and their rgb24 colors on a camera axis."""
+    x, y, z = (torch.stack([a, b]) for a, b in zip(xyz_l, xyz_r))
+    val = torch.stack([val_l, val_r])
+    if left.color_packed is not None and right.color_packed is not None:
+        rgb24 = torch.stack([left.color_packed, right.color_packed])
+    else:
+        rgb24 = R.pack_rgb(torch.stack([left.color, right.color]))
+    return x, y, z, val, rgb24
+
+
+def _render(x, y, z, val, rgb24, config: FusionConfig, fused_intrinsics: Intrinsics):
+    """Project and resolve the merged cloud in the configured mode:
+    ((r, g, b) planes, z-buffer or None)."""
+    w_f, h_f = fused_intrinsics.width, fused_intrinsics.height
+    z_near, z_far = _z_range(config)
+    mirror = config.mirror_image
+    if config.render_mode == "packed":
+        return R.project_zbuffer_packed_planar(
+            x, y, z, None, None, None, val, fused_intrinsics, mirror=mirror,
+            z_near=z_near, z_far=z_far, return_planes=True, rgb24=rgb24,
+        )
+    if config.render_mode == "indexed":
+        covered, widx = R.indexed_winner_planar(
+            x, y, z, val, fused_intrinsics, mirror=mirror, z_near=z_near, z_far=z_far,
+        )
+        rp, gp, bp, zb = R.indexed_winner_gather(covered, widx, z, None, None, None, rgb24=rgb24)
+        return tuple(p.reshape(h_f, w_f) for p in (rp, gp, bp)), zb.reshape(h_f, w_f)
+    # tiled and exact share one winner contract; exact always emits the z-buffer
+    return R.project_zbuffer_tiled_planar(
+        x, y, z, None, None, None, val, fused_intrinsics, mirror=mirror,
+        return_planes=True, need_zbuf=config.emit_zbuf or config.render_mode == "exact",
+        rgb24=rgb24,
+    )
+
+
+def _filter_image(planes, config: FusionConfig) -> torch.Tensor:
+    rp, gp, bp = planes
+    if config.filter_fused_color:
+        return F.filter_color_planar(rp, gp, bp, config.use_median_filter)
+    return torch.stack([rp, gp, bp], dim=-1)
 
 
 def fuse_posed(
@@ -184,48 +230,16 @@ def fuse_posed(
         return _fuse_pallas(left, right, fused_t, right_total, config, fused_intrinsics,
                             prep_poses)
     foot_l, foot_r = footprints or (config.align_footprint,) * 2
-    xl, yl, zl, val_l = _prepare_camera(left, config.roi_left, config, foot_l)
-    xr, yr, zr, val_r = _prepare_camera(right, config.roi_right, config, foot_r)
-    xl, yl, zl = G.transform_planar(xl, yl, zl, fused_t)
-    xr, yr, zr = G.transform_planar(xr, yr, zr, right_total)
-
-    x = torch.stack([xl, xr])
-    y = torch.stack([yl, yr])
-    z = torch.stack([zl, zr])
-    val = torch.stack([val_l, val_r])
-    if left.color_packed is not None and right.color_packed is not None:
-        rgb24 = torch.stack([left.color_packed, right.color_packed])
-    else:
-        rgb24 = R.pack_rgb(torch.stack([left.color, right.color]))
-    w_f, h_f = fused_intrinsics.width, fused_intrinsics.height
-    z_near, z_far = _z_range(config)
-    mirror = config.mirror_image
-    planes = None
-    if config.render_mode == "packed":
-        planes, zbuf = R.project_zbuffer_packed_planar(
-            x, y, z, None, None, None, val, fused_intrinsics, mirror=mirror,
-            z_near=z_near, z_far=z_far, return_planes=True, rgb24=rgb24,
-        )
-    elif config.render_mode == "indexed":
-        covered, widx = R.indexed_winner_planar(
-            x, y, z, val, fused_intrinsics, mirror=mirror, z_near=z_near, z_far=z_far,
-        )
-        rp, gp, bp, zb = R.indexed_winner_gather(covered, widx, z, None, None, None, rgb24=rgb24)
-        planes = tuple(p.reshape(h_f, w_f) for p in (rp, gp, bp))
-        zbuf = zb.reshape(h_f, w_f)
-    else:  # tiled and exact share one winner contract; exact always emits the z-buffer
-        planes, zbuf = R.project_zbuffer_tiled_planar(
-            x, y, z, None, None, None, val, fused_intrinsics, mirror=mirror,
-            return_planes=True, need_zbuf=config.emit_zbuf or config.render_mode == "exact",
-            rgb24=rgb24,
-        )
-    rp, gp, bp = planes
-    if config.filter_fused_color:
-        image = F.filter_color_planar(rp, gp, bp, config.use_median_filter)
-    else:
-        image = torch.stack([rp, gp, bp], dim=-1)
+    dl, val_l = _filter_camera(left, config.roi_left, config, foot_l)
+    dr, val_r = _filter_camera(right, config.roi_right, config, foot_r)
+    *xyz_l, val_l = _deproject_camera(left, dl, val_l)
+    *xyz_r, val_r = _deproject_camera(right, dr, val_r)
+    xyz_l = G.transform_planar(*xyz_l, fused_t)
+    xyz_r = G.transform_planar(*xyz_r, right_total)
+    merged = _merge(left, right, xyz_l, xyz_r, val_l, val_r)
+    planes, zbuf = _render(*merged, config, fused_intrinsics)
     return FusionResult(
-        image=image, zbuf=zbuf, valid_left=val_l, valid_right=val_r,
+        image=_filter_image(planes, config), zbuf=zbuf, valid_left=val_l, valid_right=val_r,
         timestamp=left.timestamp,
     )
 
@@ -351,3 +365,54 @@ class FusionPipeline:
             self.calibrate(left, right)
         return fuse_posed(left, right, *self._poses, self.config, self.fused_intrinsics,
                           self._footprints, self._prep_poses)
+
+    def process_profiled(self, left: Frameset, right: Frameset):
+        """:meth:`process` with a fenced lap after each stage (the
+        reference's getTiming, fusion_node.cpp:620-631).
+
+        Returns (FusionResult, laps, host image): ``laps`` holds the
+        milliseconds of the schema's device stages, ``filter``,
+        ``deproject``, ``transform_right`` (right cloud into the virtual
+        camera), ``transform`` (left cloud), ``fuse`` (merge),
+        ``project`` (resolve and decode), ``filter_image`` and
+        ``copy_from_gpu``. The stages are :meth:`process`'s own operations
+        with the right pose composed, so the image equals its image bit for
+        bit (the JAX package's split programs transform the merged cloud
+        instead and may differ in the last bit). The host stages are the
+        caller's. ``pallas`` mode has no stage boundaries and raises, as
+        in the JAX package."""
+        from pointcloud_depthfusion_tpu_torch.utils.profiling import StageTimer  # noqa: PLC0415
+
+        cfg = self.config
+        _check_config(cfg)
+        if cfg.render_mode == "pallas":
+            raise NotImplementedError(
+                "profiling mode does not cover render_mode='pallas' (the prep kernel "
+                "has no stage boundaries); profile the equivalent 'packed' mode instead"
+            )
+        if self._footprints is None:
+            self.calibrate(left, right)
+        fused_t, right_total = self._poses
+        foot_l, foot_r = self._footprints
+        timer = StageTimer()
+        dl, val_l = _filter_camera(left, cfg.roi_left, cfg, foot_l)
+        dr, val_r = _filter_camera(right, cfg.roi_right, cfg, foot_r)
+        timer.lap("filter", dl, dr)
+        *xyz_l, val_l = _deproject_camera(left, dl, val_l)
+        *xyz_r, val_r = _deproject_camera(right, dr, val_r)
+        timer.lap("deproject", xyz_l[0], xyz_r[0])
+        xyz_r = G.transform_planar(*xyz_r, right_total)
+        timer.lap("transform_right", xyz_r[0])
+        xyz_l = G.transform_planar(*xyz_l, fused_t)
+        timer.lap("transform", xyz_l[0])
+        merged = _merge(left, right, xyz_l, xyz_r, val_l, val_r)
+        timer.lap("fuse", merged[0], merged[4])
+        planes, zbuf = _render(*merged, cfg, self.fused_intrinsics)
+        timer.lap("project", *planes)
+        image = _filter_image(planes, cfg)
+        timer.lap("filter_image", image)
+        host_image = image.cpu().numpy()
+        timer.lap("copy_from_gpu")
+        result = FusionResult(image=image, zbuf=zbuf, valid_left=val_l, valid_right=val_r,
+                              timestamp=left.timestamp)
+        return result, timer.laps, host_image

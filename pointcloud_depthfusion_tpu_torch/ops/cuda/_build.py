@@ -113,6 +113,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fuse_prep_launch.restype = i
     lib.filter3x3_launch.argtypes = [p, p, i, i, i, p]
     lib.filter3x3_launch.restype = i
+    lib.morph_launch.argtypes = [p, p, i, i, i, p]
+    lib.morph_launch.restype = i
     lib.segsum_launch.argtypes = [p, p, p, i, i, i, p, p, p]
     lib.segsum_launch.restype = i
     return lib

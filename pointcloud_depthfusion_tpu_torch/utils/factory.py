@@ -1,9 +1,10 @@
-"""Config-tree → component factories: the port's subset of
-pointcloud_depthfusion_tpu/utils/factory.py.
+"""Config-tree → component factories: port of
+pointcloud_depthfusion_tpu/utils/factory.py (the launch-file layer).
 
 Loads ``configs/*_default.yaml`` from the repository root (+ an optional
-override file) and builds the fusion config and the registration settings
-the shipped deployment runs.
+override file) and builds the fusion config, the registration settings,
+the node apps' keyword arguments and the camera trees the shipped
+deployment runs.
 """
 
 from __future__ import annotations
@@ -94,8 +95,49 @@ def registration_settings_from_tree(cfg: ConfigTree) -> RegistrationSettings:
     )
 
 
+def registration_node_kwargs_from_tree(cfg: ConfigTree) -> dict:
+    """RegistrationNodeApp's own parameters (not the solver's): tick rate
+    and profiling sink."""
+    kwargs = {"spin_rate_hz": float(cfg.get("spin_rate", 0.5))}
+    if bool(cfg.get("profiling.enable_profiling", False)):
+        kwargs["profiling_path"] = str(
+            cfg.get("profiling.filename", "registration_node_profiling.txt")
+        )
+    return kwargs
+
+
+def fusion_node_kwargs_from_tree(cfg: ConfigTree) -> dict:
+    """FusionNodeApp's own parameters: sync window and queue, feeder depth,
+    donation, async readback, color packing, QoS lifespan, profiling sink
+    and save_data directory."""
+    kwargs = {
+        "max_sync_interval_s": float(cfg.get("sync.max_interval_ms", 17.0)) / 1e3,
+        # message_filters queue 10 (fusion_node.cpp:221-228), the feeder
+        # hand-off depth (qos_history_depth), the profiling flush size.
+        "sync_queue_size": int(cfg.get("sync.queue_size", 10)),
+        "feeder_depth": int(cfg.get("qos_history_depth", 2)),
+        "donate": bool(cfg.get("donate", True)),
+        "async_readback": bool(cfg.get("async_readback", True)),
+        "pack_color": bool(cfg.get("pack_color", False)),
+    }
+    lifespan = float(cfg.get("qos.lifespan_s", 0.0))
+    # Always emit the key: an explicit 0 disables the drop (None).
+    kwargs["lifespan_s"] = lifespan if lifespan > 0 else None
+    if bool(cfg.get("profiling.enable_profiling", False)):
+        kwargs["profiling_path"] = str(cfg.get("profiling.filename", "fusion_node_profiling.txt"))
+        kwargs["profiling_log_size"] = int(cfg.get("profiling.log_size", 400))
+    if bool(cfg.get("save_data", False)):
+        kwargs["save_data_dir"] = str(cfg.get("save_data_dir", "save_data"))
+    return kwargs
+
+
 def registration_settings(
     override_path: Optional[str] = None,
 ) -> Tuple[RegistrationSettings, ConfigTree]:
     cfg = load_node_config("registration_node", "registration_default.yaml", override_path)
     return registration_settings_from_tree(cfg), cfg
+
+
+def camera_config(name: str, override_path: Optional[str] = None) -> ConfigTree:
+    """The ``name`` camera's tree of configs/camera_default.yaml (+ override)."""
+    return load_node_config(name, "camera_default.yaml", override_path)

@@ -12,6 +12,7 @@ import torch
 
 from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
 from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
+from pointcloud_depthfusion_tpu_torch.ops.cuda import morph_cuda as B6
 from pointcloud_depthfusion_tpu_torch.ops.cuda import segsum_cuda as B5
 from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
 
@@ -58,6 +59,46 @@ def test_filter_kernel_matches_plain(cuda, h, w):
     assert torch.equal(B4.gauss3x3_plane(p), B4.gauss3x3_plane_plain(p))
     assert torch.equal(B4.median3x3_plane(p), B4.median3x3_plane_plain(p))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("h,w", [(0, 5), (1, 1), (1, 9), (2, 2), (5, 3), (7, 129), (131, 33),
+                                 (480, 848)])
+def test_morph_kernel_matches_plain(cuda, h, w):
+    g = torch.Generator(device=cuda).manual_seed(h * 1000 + w)
+    masks = [torch.randint(0, 2, (h, w), generator=g, device=cuda, dtype=torch.uint8),
+             torch.randint(0, 256, (h, w), generator=g, device=cuda, dtype=torch.uint8),
+             torch.zeros((h, w), device=cuda, dtype=torch.uint8),
+             torch.ones((h, w), device=cuda, dtype=torch.uint8)]
+    before = B6.launches["morph_plane"]
+    for m in masks:
+        for dilate in (False, True):
+            assert torch.equal(B6.morph_plane(m, dilate), B6.morph_plane_plain(m, dilate))
+    torch.cuda.synchronize()
+    assert B6.launches["morph_plane"] == before + (8 if h * w else 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        B6.morph_plane(torch.zeros((8, 6), dtype=torch.uint8, device=cuda).t(), True)
+
+
+def test_filter_depth_with_morphology_on_card_matches_cpu(cuda):
+    """Four B6 launches per call; bit-identical to the CPU's plain run."""
+    from pointcloud_depthfusion_tpu_torch.ops import filters as F
+
+    rng = np.random.default_rng(5)
+    depth = rng.integers(300, 3300, (120, 160)).astype(np.int32)
+    depth[rng.random(depth.shape) < 0.02] = 0
+    for roi in (None, (10, 5, 100, 80)):
+        out = {}
+        for dev in ("cpu", cuda):
+            before = B6.launches["morph_plane"]
+            out[str(dev)] = F.filter_depth(torch.from_numpy(depth).to(dev),
+                                           torch.tensor(0.001, device=dev),
+                                           torch.tensor(0.5, device=dev),
+                                           torch.tensor(3.0, device=dev), roi,
+                                           use_morphology=True)
+            torch.cuda.synchronize()
+            assert B6.launches["morph_plane"] - before == (4 if dev == cuda else 0)
+        for a, b in zip(out["cuda"], out["cpu"]):
+            assert torch.equal(a.cpu(), b)
 
 
 # Segment sums (B5): the kernel adds each slot's entries in entry order, so

@@ -76,14 +76,25 @@ def test_degenerate_planes_pass_through(h, w):
                                   np.asarray(JF.median_filter(jnp.asarray(p), 1)))
 
 
-def test_unported_filter_cases_raise():
-    p = torch.zeros((8, 8), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="A10"):
-        TF.gauss_filter(p, 5)
-    with pytest.raises(NotImplementedError, match="A10"):
-        TF.median_filter(p, 1, interior_roi=False)
-    with pytest.raises(NotImplementedError, match="A10"):
-        TF.filter_depth(p.to(torch.int32), 0.001, 0.5, 3.0, use_morphology=True)
+@pytest.mark.parametrize("size", [3, 5])
+def test_general_gauss_and_median_bit_exact(size):
+    """The cases outside B4 (u16 depth, 5×5, radius 2, ``interior_roi=False``)
+    run plain PyTorch: bit-exact to JAX. The Gauss is exact in f32 up to the
+    5×5 u16 case, so half-up rounding is NPP's."""
+    rng = np.random.default_rng(size)
+    depth = rng.integers(0, 65536, (40, 56)).astype(np.uint16)
+    depth[0, :8] = [65535, 65535, 0, 1, 2, 65535, 7, 8]
+    img = rng.integers(0, 256, (40, 56, 3)).astype(np.uint8)
+    for a in (depth, img):
+        t = torch.from_numpy(a.astype(np.int32) if a.dtype == np.uint16 else a)
+        for interior in (True, False):
+            got = TF.gauss_filter(t, size, interior_roi=interior)
+            assert got.dtype == t.dtype
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(JF.gauss_filter(jnp.asarray(a), size, interior)))
+            got = TF.median_filter(t, size // 2, interior_roi=interior)
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(JF.median_filter(jnp.asarray(a), size // 2, interior)))
 
 
 ROIS = [None, (10, 5, 50, 40), (100, 80, 200, 200), (-1, -1, -1, -1), (5, -3, -1, 20)]

@@ -5,6 +5,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -26,7 +27,9 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = _port_modules()
     for m in ("fusion.pipeline", "parallel.mesh", "io.feeder", "nodes.rig_node",
-              "utils.profiling", "io.artifacts"):
+              "utils.profiling", "io.artifacts", "ops.cuda.morph_cuda", "ops.host_filters",
+              "nodes.camera_node", "nodes.fusion_node", "nodes.registration_node",
+              "nodes.image_node", "nodes.launch", "utils.factory"):
         assert f"pointcloud_depthfusion_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -102,6 +105,35 @@ def test_cpu_rig_never_builds_kernels(monkeypatch):
     assert counters == before
 
 
+def test_cpu_deployment_never_builds_kernels(monkeypatch, tmp_path):
+    """``run_deployment`` on the CPU (dual tier with registration ticks,
+    the morphology filter, and the rig tier) runs every kernel's plain
+    version and counts no launch."""
+    from pointcloud_depthfusion_tpu_torch.nodes.launch import run_deployment
+    from pointcloud_depthfusion_tpu_torch.ops import filters
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import (
+        filters_cuda, morph_cuda, segsum_cuda, zresolve_cuda,
+    )
+
+    monkeypatch.setattr(_build, "load", _refuse_build)
+    counters = (zresolve_cuda.launches, filters_cuda.launches, segsum_cuda.launches,
+                morph_cuda.launches)
+    before = tuple(dict(c) for c in counters)
+    cams = [{"name": n, "source": "synthetic", "seed": s, "pose": p}
+            for n, s, p in (("camera_left", 10, "left"), ("camera_right", 20, "right"))]
+    dual = run_deployment({"width": 48, "height": 32, "cameras": cams,
+                           "registration": {"every_n_frames": 2},
+                           "viewer": {"out_dir": str(tmp_path)}}, device="cpu", frames=3)
+    assert dual["frames"] == 3 and dual["registration_fitness"] is not None
+    rig = run_deployment({"width": 48, "height": 32, "registration": {"every_n_frames": 0},
+                          "cameras": [{"name": f"c{i}", "seed": i} for i in range(3)]},
+                         device="cpu", frames=2)
+    assert rig["frames"] == 2
+    depth = torch.from_numpy(np.random.default_rng(0).integers(0, 3000, (24, 32)).astype(np.int32))
+    filters.filter_depth(depth, 0.001, 0.5, 3.0, use_morphology=True)
+    assert counters == before
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
@@ -127,7 +159,7 @@ def test_build_flags_and_sources():
     import pointcloud_depthfusion_tpu_torch.core.geometry  # noqa: F401  (turns TF32 off)
 
     assert [p.name for p in _build.sources()] == [
-        "filters3x3.cu", "fuse_prep.cu", "segsum.cu", "zresolve.cu"]
+        "filters3x3.cu", "fuse_prep.cu", "morph.cu", "segsum.cu", "zresolve.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fPIC" in flags
     assert "-shared" in _build.LINK_FLAGS
@@ -141,8 +173,12 @@ def test_entry_points_default_to_the_card():
     from pointcloud_depthfusion_tpu_torch.core.camera import Extrinsics, Intrinsics
     from pointcloud_depthfusion_tpu_torch.core.frameset import Frameset
     from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, FusionPipeline
-    from pointcloud_depthfusion_tpu_torch.io.feeder import RigFeeder, SyntheticSource
+    from pointcloud_depthfusion_tpu_torch.io.feeder import DeviceFeeder, RigFeeder, SyntheticSource
     from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene
+    from pointcloud_depthfusion_tpu_torch.nodes.camera_node import CameraNode
+    from pointcloud_depthfusion_tpu_torch.nodes.fusion_node import FusionNodeApp
+    from pointcloud_depthfusion_tpu_torch.nodes.launch import run_deployment
+    from pointcloud_depthfusion_tpu_torch.nodes.registration_node import RegistrationNodeApp
     from pointcloud_depthfusion_tpu_torch.nodes.rig_node import RigFusionNodeApp
     from pointcloud_depthfusion_tpu_torch.parallel.mesh import batched_rig_fuse, rig_fuse
     from pointcloud_depthfusion_tpu_torch.registration.pipeline import RegistrationPipeline
@@ -151,6 +187,7 @@ def test_entry_points_default_to_the_card():
     host = Intrinsics.create(8, 6, 5.0, 5.0, 4.0, 3.0, device="cpu")
     depth, color = np.zeros((6, 8), np.uint16), np.zeros((6, 8, 3), np.uint8)
     sources = [SyntheticSource(SyntheticScene(), host, np.eye(4), seed=i) for i in range(2)]
+    cams = [CameraNode(f"cam{i}", s) for i, s in enumerate(sources)]
     cpu_cfg = FusionConfig.create(device="cpu")
     calls = {
         "Intrinsics.create": lambda: Intrinsics.create(8, 6, 5.0, 5.0, 4.0, 3.0).fx,
@@ -166,6 +203,12 @@ def test_entry_points_default_to_the_card():
         "batched_rig_fuse": lambda: batched_rig_fuse(host, host, cpu_cfg, 2, 2),
         "RigFeeder": lambda: RigFeeder(sources),
         "RigFusionNodeApp": lambda: RigFusionNodeApp(sources, host, np.eye(4)[None].repeat(2, 0)),
+        "DeviceFeeder": lambda: DeviceFeeder(*sources),
+        "FusionNodeApp": lambda: FusionNodeApp(*cams).pipeline.right_transform,
+        "RegistrationNodeApp": lambda: RegistrationNodeApp(*cams).pipeline.intr_left.fx,
+        "run_deployment": lambda: types.SimpleNamespace(device=torch.device(run_deployment(
+            {"width": 8, "height": 6, "cameras": [{"name": "a"}, {"name": "b"}]},
+            frames=1)["device"])),
     }
     for name, call in calls.items():
         if torch.cuda.is_available():
