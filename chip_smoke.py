@@ -5,7 +5,9 @@
 
 Builds the port's CUDA kernels from ``pointcloud_depthfusion_tpu_torch/csrc``
 (nvcc, into ``build/torch_kernels/``) and holds each kernel against its plain
-PyTorch version at the main paths' shapes. Then it drives the two services
+PyTorch version at the main paths' shapes: among them B4's image kernel (the
+fused frame's whole color tail in one launch, phase 3) and B5's own grouping
+(phase 7), each also timed against the design it replaced. Then it drives the two services
 the shipped deployment runs, each against the same pipeline on the CPU at
 dual 848×480 and dual 1280×720, with every launch counter set to 0 just
 before and read just after:
@@ -42,6 +44,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -56,8 +59,11 @@ REPLACES = {
     "zresolve_winner_rgb": "pointcloud_depthfusion_tpu/ops/pallas/zresolve_pallas.py:182",
     "zresolve_sorted_entries": "pointcloud_depthfusion_tpu/ops/pallas/zresolve_pallas.py:112",
     "zresolve_sorted_entries_legacy": "pointcloud_depthfusion_tpu/ops/pallas/zresolve_pallas.py:53",
-    "gauss3x3_plane": "pointcloud_depthfusion_tpu/ops/pallas/filters_pallas.py:69",
-    "median3x3_plane": "pointcloud_depthfusion_tpu/ops/pallas/filters_pallas.py:41",
+    "gauss3x3_image": "pointcloud_depthfusion_tpu/ops/pallas/filters_pallas.py:69",
+    "median3x3_image": "pointcloud_depthfusion_tpu/ops/pallas/filters_pallas.py:41",
+    # Not a Pallas kernel: the image kernel with no filter replaces the XLA
+    # decode of the resolve's winner (and the stack of the planes).
+    "color_image": "pointcloud_depthfusion_tpu/ops/render.py:138",
     "segsum_sorted": "pointcloud_depthfusion_tpu/ops/pallas/segsum_pallas.py:42",
     "fuse_prep": "pointcloud_depthfusion_tpu/ops/pallas/fuse_prep_pallas.py:43",
     "zresolve_sorted_streams": "pointcloud_depthfusion_tpu/ops/pallas/zresolve_pallas.py:500",
@@ -70,8 +76,9 @@ SOURCES = {
     "zresolve_winner_rgb": "pointcloud_depthfusion_tpu_torch/csrc/zresolve.cu",
     "zresolve_sorted_entries": "pointcloud_depthfusion_tpu_torch/csrc/zresolve.cu",
     "zresolve_sorted_entries_legacy": "pointcloud_depthfusion_tpu_torch/csrc/zresolve.cu",
-    "gauss3x3_plane": "pointcloud_depthfusion_tpu_torch/csrc/filters3x3.cu",
-    "median3x3_plane": "pointcloud_depthfusion_tpu_torch/csrc/filters3x3.cu",
+    "gauss3x3_image": "pointcloud_depthfusion_tpu_torch/csrc/filters3x3.cu",
+    "median3x3_image": "pointcloud_depthfusion_tpu_torch/csrc/filters3x3.cu",
+    "color_image": "pointcloud_depthfusion_tpu_torch/csrc/filters3x3.cu",
     "segsum_sorted": "pointcloud_depthfusion_tpu_torch/csrc/segsum.cu",
     "fuse_prep": "pointcloud_depthfusion_tpu_torch/csrc/fuse_prep.cu",
     "zresolve_sorted_streams": "pointcloud_depthfusion_tpu_torch/csrc/zresolve.cu",
@@ -166,6 +173,12 @@ DEPLOY_CMP_FRAMES = 3
 DEPLOY_CMP_EVERY = 2
 DEPLOY_SAVE_EVERY = 8
 REPLAY_FRAMES = 30
+# Phase 3: the image kernel's (H, W): the fused frames' (vertical) and
+# landscape shapes at both sizes, odd widths, and images under 3×3; its
+# modes by launch counter.
+IMAGE_SIZES = ((848, 480), (480, 848), (1280, 720), (720, 1280), (13, 7), (7, 129), (131, 33),
+               (2, 5), (5, 2), (1, 1))
+IMAGE_MODES = {None: "color_image", "gauss": "gauss3x3_image", "median": "median3x3_image"}
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -194,6 +207,34 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time(fn, calls: int = 20) -> tuple:
+    """Device time of ``fn`` under torch.profiler, after a warm call: (ms
+    per call of all its device work, {kernel, copy or fill name: ms per
+    call}). Unlike CUDA events around a loop of calls it leaves out the
+    host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    by_name: dict = {}
+    # A trace now and then comes back without its device events: try again.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if str(e.device_type).endswith("CUDA"):
+                # "void (anonymous namespace)::place<true>(int const*, ...)" → "place"
+                match = re.search(r"::([A-Za-z_]\w*)[<(]", e.name)
+                name = match.group(1) if match else e.name[:32]
+                by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+        if by_name:
+            return sum(by_name.values()), by_name
+    raise RuntimeError("three profiler traces came back without device events: device time "
+                       "not measured")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -296,8 +337,8 @@ def phase_filters(errs: dict) -> None:
         }
         for kind, p in planes.items():
             for name, kernel, plain in (
-                ("gauss3x3_plane", B4.gauss3x3_plane, B4.gauss3x3_plane_plain),
-                ("median3x3_plane", B4.median3x3_plane, B4.median3x3_plane_plain),
+                ("gauss3x3_image", B4.gauss3x3_plane, B4.gauss3x3_plane_plain),
+                ("median3x3_image", B4.median3x3_plane, B4.median3x3_plane_plain),
             ):
                 got, want = kernel(p), plain(p)
                 torch.cuda.synchronize()
@@ -305,7 +346,104 @@ def phase_filters(errs: dict) -> None:
                 errs[name] = max(errs[name], err)
                 if not torch.equal(got, want):
                     raise AssertionError(f"{name} differs from plain on {kind} {h}x{w}: {err}")
-        log(f"[3] filter3x3 {h}x{w}: gauss and median bit-exact on random/ties/zeros/full")
+        log(f"[3] per-plane B4 {h}x{w}: gauss and median bit-exact on random/ties/zeros/full")
+    phase_image_filters(errs)
+
+
+def image_inputs(h: int, w: int, g: torch.Generator) -> tuple:
+    """The image kernel's inputs at h×w: packed winners (h·w,) int32 with
+    uncovered pixels (INT32_MAX) and channels in {0, 1} on a third of the
+    pixels (Gauss rounding ties), and an (h, w, 3) u8 image."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
+
+    n = h * w
+    wide = torch.randint(0, 1 << 24, (n,), generator=g, device=DEVICE, dtype=torch.int32)
+    bits = torch.randint(0, 8, (n,), generator=g, device=DEVICE, dtype=torch.int32)
+    ties = ((bits >> 2) << 16) | (((bits >> 1) & 1) << 8) | (bits & 1)
+    coin = torch.rand(n, generator=g, device=DEVICE)
+    mrgb = torch.where(coin < 0.3, ties, wide)
+    mrgb = torch.where(torch.rand(n, generator=g, device=DEVICE) < 0.2, B4.INT32_MAX, mrgb)
+    img = torch.randint(0, 256, (h, w, 3), generator=g, device=DEVICE, dtype=torch.uint8)
+    return mrgb, img
+
+
+def phase_image_filters(errs: dict) -> None:
+    """B4's image kernel in every input form and mode against its plain
+    version on the card and on the CPU, bit for bit: the fused frames'
+    shapes at both sizes (vertical and landscape), odd widths, and images
+    under 3×3."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
+
+    g = torch.Generator(device=DEVICE).manual_seed(31)
+    for h, w in IMAGE_SIZES:
+        mrgb, img = image_inputs(h, w, g)
+        planes = [img[..., c].contiguous() for c in range(3)]
+
+        def winner(t, mode, fn=B4.winner_image):
+            return fn(t, h, w, mode)
+
+        def winner_plain(t, mode):
+            return B4.winner_image_plain(t, h, w, mode)
+
+        cases = {
+            "winner": (winner, winner_plain, mrgb),
+            # data 4 B past a 16 B boundary: the kernel's scalar loads
+            "winner +4 B": (winner, winner_plain, torch.cat([mrgb[:1], mrgb])[1:]),
+            "winner batch of 2": (winner, winner_plain, torch.stack([mrgb, mrgb.flip(0)])),
+            "planes": (B4.planes_image, B4.planes_image_plain, planes),
+            "interleaved C=3": (B4.interleaved_image, B4.interleaved_image_plain, img),
+            "interleaved C=2": (B4.interleaved_image, B4.interleaved_image_plain,
+                                img[..., 1:].contiguous()),
+            "interleaved C=4": (B4.interleaved_image, B4.interleaved_image_plain,
+                                torch.cat([img, planes[0][..., None]], dim=-1)),
+            "plane C=1": (B4.interleaved_image, B4.interleaved_image_plain, planes[1]),
+        }
+        for what, (kernel, plain, x) in cases.items():
+            host_x = [t.cpu() for t in x] if isinstance(x, list) else x.cpu()
+            for mode, name in IMAGE_MODES.items():
+                got, want, host = kernel(x, mode), plain(x, mode), kernel(host_x, mode)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                errs[name] = max(errs[name], err)
+                if not (torch.equal(got, want) and torch.equal(got.cpu(), host)):
+                    raise AssertionError(f"{name} differs from plain: {what} {h}x{w}: {err}")
+        log(f"[3] image kernel {h}x{w}: {', '.join(cases)}; copy, gauss and median bit-exact to "
+            f"the plain version on the card and to the CPU")
+
+
+def legacy_planes_tail(planes, mode):
+    """The color tail of u8 planes before the image kernel: one B4 launch
+    per channel plane (the per-plane API), then a stack."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
+
+    if mode is None:
+        return torch.stack(list(planes), dim=-1)
+    f = B4.median3x3_plane if mode == "median" else B4.gauss3x3_plane
+    return torch.stack([f(p) for p in planes], dim=-1)
+
+
+def legacy_winner_tail(mrgb, h: int, w: int, mode):
+    """The color tail of a packed winner before the image kernel: the
+    coverage compare and ``decode_winner_planes`` (a where, then shifts,
+    masks and casts per channel), then :func:`legacy_planes_tail`."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
+
+    planes = [p.reshape(h, w) for p in B4.decode_winner_planes(mrgb != B4.INT32_MAX, mrgb)]
+    return legacy_planes_tail(planes, mode)
+
+
+@contextlib.contextmanager
+def legacy_color_tail():
+    """Within the block every color tail of the package runs as it did
+    before the image kernel (one unbatched image per call)."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
+
+    saved = B4.winner_image, B4.planes_image
+    B4.winner_image, B4.planes_image = legacy_winner_tail, legacy_planes_tail
+    try:
+        yield
+    finally:
+        B4.winner_image, B4.planes_image = saved
 
 
 # -- phases 4-5: the main path ---------------------------------------------
@@ -433,8 +571,9 @@ def drive_main_path(scene: Scene, n_frames: int, n_median: int, tag: str) -> dic
     return {
         "zresolve_sorted_entries": n_frames + n_median,
         "zresolve_winner_rgb": n_frames + n_median,
-        "gauss3x3_plane": 3 * 2 * n_frames,
-        "median3x3_plane": 3 * 2 * n_median,
+        # The color tail: one image launch a frame.
+        "gauss3x3_image": 2 * n_frames,
+        "median3x3_image": 2 * n_median,
     }
 
 
@@ -616,7 +755,7 @@ def drive_modes(scene: Scene, n_frames: int, tag: str) -> dict:
         "zresolve_sorted_entries": 2 * n + 3 * n,
         "scatter_min_u32": 3 * n,
         "fuse_prep": 2 * n,
-        "gauss3x3_plane": 3 * (len(MODES) + 1) * n,
+        "gauss3x3_image": (len(MODES) + 1) * n,
     }
 
 
@@ -663,8 +802,6 @@ def time_kernels(card: str) -> dict:
     n_px = 480 * 848
     n = 2 * n_px
     pix, z, rgb = resolve_entries(n, n_px, seed=7, device=DEVICE)
-    plane = torch.randint(0, 256, (848, 480), device=DEVICE, dtype=torch.uint8,
-                          generator=torch.Generator(device=DEVICE).manual_seed(9))
     # The library's resolve: one scatter_reduce_(amin) of prebuilt int64
     # keys (z bits high, rgb low) into a dump-slotted pixel buffer.
     idx = torch.where((pix >= 0) & (pix < n_px), pix, n_px).to(torch.int64)
@@ -683,25 +820,88 @@ def time_kernels(card: str) -> dict:
             lambda: Z.zresolve_sorted_entries(pix, z, rgb, n_px, legacy_feed=True),
             lambda: Z.zresolve_sorted_entries_plain(pix, z, rgb, n_px),
             library, bound(entries_in + 8 * n_px, n)),
-        # 3×3 filters of one u8 plane: 1 B in and 1 B out per pixel; about
-        # 20 operations per pixel for the Gauss, 38 min/max for the median.
-        "gauss3x3_plane": (lambda: B4.gauss3x3_plane(plane),
-                           lambda: B4.gauss3x3_plane_plain(plane), None,
-                           bound(2 * plane.numel(), 20 * plane.numel())),
-        "median3x3_plane": (lambda: B4.median3x3_plane(plane),
-                            lambda: B4.median3x3_plane_plain(plane), None,
-                            bound(2 * plane.numel(), 38 * plane.numel())),
     }
+    # The image kernel on the packed winner of a vertical dual 848×480
+    # frame ((H, W) = (848, 480)): 4 B in and 3 B out per pixel; about 5
+    # operations a pixel to decode, 60 more for the Gauss of three channels
+    # or 114 min/max for their medians.
+    fh, fw = 848, 480
+    mrgb, _ = image_inputs(fh, fw, torch.Generator(device=DEVICE).manual_seed(13))
+    n_img = fh * fw
+    for mode, name in IMAGE_MODES.items():
+        ops = {None: 5, "gauss": 65, "median": 119}[mode]
+        pairs[name] = (lambda m=mode: B4.winner_image(mrgb, fh, fw, m),
+                       lambda m=mode: B4.winner_image_plain(mrgb, fh, fw, m), None,
+                       bound(7 * n_img, ops * n_img))
     out = {}
     for name, (kernel, plain, lib_ms, (b_ms, b_by)) in pairs.items():
         k, p, each = turns(kernel, plain)
         out[name] = (k, p, lib_ms, b_ms, b_by)
-        shape = "848x480 u8 plane" if "plane" in name else f"N={n} n_px={n_px}"
+        shape = f"{fh}x{fw} packed winner" if "image" in name else f"N={n} n_px={n_px}"
         log(f"[6] {name} at {shape}: kernel {k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}), "
             f"plain {p:.5f} ms ({each[2]:.5f}, {each[3]:.5f}), library "
             f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms (scatter_reduce_ amin)'}, "
             f"bound {b_ms:.5f} ms by {b_by} on {card}")
     return out
+
+
+def time_color_tail(card: str) -> dict:
+    """B4's image kernel against the tail it replaced, on the same inputs,
+    in turns (old, new, new, old), at both fused frames' (vertical) shapes:
+    form (a), the packed winner, against the decode, three plane launches
+    (or none) and a stack; form (b), three u8 planes, against three plane
+    launches and a stack; each also by its device time alone
+    (:func:`device_time`). {"<form> <mode> <h>x<w>": (new ms, old ms, new
+    device ms, old device ms)}."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
+
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    out = {}
+    for h, w in ((848, 480), (1280, 720)):
+        mrgb, img = image_inputs(h, w, g)
+        planes = [img[..., c].contiguous() for c in range(3)]
+        for mode in IMAGE_MODES:
+            forms = {"winner": (lambda m=mode: B4.winner_image(mrgb, h, w, m),
+                                lambda m=mode: legacy_winner_tail(mrgb, h, w, m))}
+            if mode is not None:
+                forms["planes"] = (lambda m=mode: B4.planes_image(planes, m),
+                                   lambda m=mode: legacy_planes_tail(planes, m))
+            for form, (new, old) in forms.items():
+                k, o, each = turns(new, old)
+                dk, _ = device_time(new)
+                do, _ = device_time(old)
+                key = f"{form} {mode or 'copy'} {h}x{w}"
+                out[key] = (k, o, dk, do)
+                log(f"[6] color tail, {key}: image kernel {k:.5f} ms ({each[0]:.5f}, "
+                    f"{each[1]:.5f}; device {dk:.5f}), the tail it replaced {o:.5f} ms "
+                    f"({each[2]:.5f}, {each[3]:.5f}; device {do:.5f}) on {card}")
+    return out
+
+
+def profile_color_tail(scene: Scene, card: str) -> tuple:
+    """One warm dual ``tiled`` frame (image only, Gauss tail) under the
+    profiler, with the image kernel and with the tail it replaced: (device
+    ops before, after). Fails unless the image kernel saves 10 or more."""
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, FusionPipeline
+
+    intr, fs = framesets(scene, DEVICE)
+    cfg = FusionConfig.create(vertical_image=True, mirror_image=True, emit_zbuf=False,
+                              device=DEVICE)
+    pipe = FusionPipeline(intr, cfg, device=DEVICE)
+    pipe.set_right_transform(scene.t_rl)
+    left, right = fs[0]
+    counts = {}
+    for label in ("before", "after"):
+        with legacy_color_tail() if label == "before" else contextlib.nullcontext():
+            pipe.process(left, right)
+            wall, busy, counts[label] = profiled(lambda: pipe.process(left, right), "[6]", top=4)
+        log(f"[6] profiled warm frame (dual {scene.w}x{scene.h} tiled image only, {label} the "
+            f"image kernel): wall {wall:.3f} ms, device busy {busy:.3f} ms, {counts[label]} "
+            f"device ops on {card}")
+    if counts["before"] - counts["after"] < 10:
+        raise AssertionError(f"the image kernel saves {counts['before'] - counts['after']} "
+                             f"device ops a frame, expected 10 or more")
+    return counts["before"], counts["after"]
 
 
 def time_modes(scene: Scene, card: str, warmup: int = 3, iters: int = 20) -> dict:
@@ -815,8 +1015,11 @@ def check_segsum(slot, values, n_slots: int, what: str, counts: bool = True) -> 
           and bool(((ks - ps).abs() <= segsum_tolerance(slot, values, n_slots)).all())
           and host_exact and torch.equal(again, ks))
     occupied = int((pr != B5.INT32_MAX).sum())
+    inside = slot[(slot >= 0) & (slot < n_slots)].to(torch.int64)
+    longest = int(torch.bincount(inside).max()) if inside.numel() else 0
     log(f"[7] segsum {what}: N={slot.shape[0]} C={values.shape[1]} n_slots={n_slots} "
-        f"occupied={occupied} rep exact={torch.equal(kr, pr)} max_abs_err(sums) vs plain on "
+        f"occupied={occupied} longest run={longest} rep exact={torch.equal(kr, pr)} "
+        f"max_abs_err(sums) vs plain on "
         f"the card={err:.6g}; bit-exact vs plain on the CPU={host_exact}; two runs "
         f"identical={torch.equal(again, ks)}")
     if not ok:
@@ -856,6 +1059,12 @@ def phase_segsum(scenes, errs: dict) -> None:
             slot, chans = cloud_inputs(scene, res)
             worst = max(worst, check_segsum(slot, chans, 1 << 15,
                                             f"dual {scene.w}x{scene.h} cloud at {res} m"))
+    # Long runs: the largest cloud at 0.1 m hashed into 64 slots, thousands
+    # of entries a slot.
+    big = scenes[-1]
+    slot, chans = cloud_inputs(big, 0.1, table_size=64)
+    worst = max(worst, check_segsum(slot, chans, 64,
+                                    f"dual {big.w}x{big.h} cloud at 0.1 m in 64 slots"))
     g = torch.Generator(device=DEVICE).manual_seed(17)
     for n, c, n_slots in ((230_400, 1, 1 << 15), (230_400, 16, 1 << 15), (4099, 16, 1000)):
         slot = torch.randint(0, n_slots, (n,), generator=g, device=DEVICE, dtype=torch.int32)
@@ -869,10 +1078,28 @@ def phase_segsum(scenes, errs: dict) -> None:
     errs["segsum_sorted"] = max(errs["segsum_sorted"], worst)
 
 
+def legacy_segsum(slot, values, n_slots: int):
+    """B5 as it was before its redesign: a stable ``torch.sort`` of the
+    slots with int64 indices, then one thread per slot finding its run by
+    binary search (``segsum_runs_launch``). Not counted."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import _build
+
+    n, c = values.shape
+    ss, si = torch.sort(slot, stable=True)
+    sums = torch.empty((n_slots, c), dtype=torch.float32, device=slot.device)
+    rep = torch.empty((n_slots,), dtype=torch.int32, device=slot.device)
+    _build.check(_build.load().segsum_runs_launch(
+        ss.data_ptr(), si.data_ptr(), values.data_ptr(), n, c, n_slots, sums.data_ptr(),
+        rep.data_ptr(), torch.cuda.current_stream().cuda_stream), "segsum_runs_launch")
+    return sums, rep
+
+
 def time_segsum(scenes, card: str) -> dict:
-    """B5 kernel vs plain vs ``index_add_`` (the sums half alone) on the
-    registration clouds at the coarse and the fine resolution, and on the
-    second call of a tick (the 2^15-entry downsampled table)."""
+    """B5 kernel vs plain vs ``index_add_`` (the sums half alone), and vs
+    the design it replaced (stable sort + binary-search runs, timed in
+    turns on the same inputs), on the registration clouds at the coarse and
+    the fine resolution and on the second call of a tick (the 2^15-entry
+    downsampled table)."""
     from pointcloud_depthfusion_tpu_torch.ops import voxel as V
     from pointcloud_depthfusion_tpu_torch.ops.cuda import segsum_cuda as B5
 
@@ -892,14 +1119,24 @@ def time_segsum(scenes, card: str) -> dict:
                 acc = torch.zeros((n_slots + 1, c), device=DEVICE)
                 lib = cuda_ms(lambda: acc.index_add_(0, idx, chans), 20)
                 sort_ms = cuda_ms(lambda: torch.sort(slot, stable=True), 20)
-                k, p, each = turns(lambda: B5.segsum_sorted(slot, chans, n_slots),
+                old = legacy_segsum(slot, chans, n_slots)
+                new = B5.segsum_sorted(slot, chans, n_slots)
+                if not all(torch.equal(a, b) for a, b in zip(old, new)):
+                    raise AssertionError(f"segsum {what}: the redesign differs from the old design")
+                k, o, turn = turns(lambda: B5.segsum_sorted(slot, chans, n_slots),
+                                   lambda: legacy_segsum(slot, chans, n_slots))
+                _, p, each = turns(lambda: B5.segsum_sorted(slot, chans, n_slots),
                                    lambda: B5.segsum_sorted_plain(slot, chans, n_slots))
                 b_ms, b_by = bound(4 * n + 4 * n * c + 4 * n_slots * c + 4 * n_slots, 2 * n * c)
-                out[what] = (k, p, lib, b_ms, b_by)
+                dk, parts = device_time(lambda: B5.segsum_sorted(slot, chans, n_slots))
+                do, _ = device_time(lambda: legacy_segsum(slot, chans, n_slots))
+                out[what] = (k, p, lib, b_ms, b_by, o, dk, do)
                 log(f"[9] segsum_sorted {what} (N={n} C={c} n_slots={n_slots}): kernel "
-                    f"{k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}; of which the stable sort "
-                    f"{sort_ms:.5f} ms), plain {p:.5f} ms, index_add_ (sums only) {lib:.5f} ms, "
-                    f"bound {b_ms:.5f} ms by {b_by} on {card}")
+                    f"{k:.5f} ms ({turn[0]:.5f}, {turn[1]:.5f}; {each[0]:.5f}, {each[1]:.5f}; "
+                    f"device {dk:.5f}: " + ", ".join(f"{m} {v:.5f}" for m, v in parts.items())
+                    + f"), the old design {o:.5f} ms ({turn[2]:.5f}, {turn[3]:.5f}; device "
+                    f"{do:.5f}; of which the stable sort {sort_ms:.5f} ms), plain {p:.5f} ms, "
+                    f"index_add_ (sums only) {lib:.5f} ms, bound {b_ms:.5f} ms by {b_by} on {card}")
     return out
 
 
@@ -1142,9 +1379,11 @@ def rig_expected(case: str, n: int, frames: int) -> dict:
         out = {"zresolve_sorted_entries": frames}
     else:
         out = {"zresolve_winner_rgb": frames}
-    if fields.get("filter_fused_color"):
-        plane = "median3x3_plane" if fields.get("use_median_filter") else "gauss3x3_plane"
-        out[plane] = 3 * frames
+    # The color tail: one image launch a frame, filtering or not.
+    if fields.get("filter_fused_color", RIG_CONFIG["filter_fused_color"]):
+        out["median3x3_image" if fields.get("use_median_filter") else "gauss3x3_image"] = frames
+    else:
+        out["color_image"] = frames
     return out
 
 
@@ -1220,8 +1459,11 @@ def drive_batched(rig: Rig, batch: int, tag: str) -> dict:
                 f"rig_fuse on the card: {same}")
             if not same:
                 raise AssertionError(f"{tag}: batched {mode} differs from per-stream")
-        name = "scatter_min_u32" if mode == "packed" else "zresolve_sorted_entries"
-        expected[name] = expected.get(name, 0) + (1 + batch) * len(rig.frames)
+        # The resolve and the color tail: one launch each for the batch and
+        # for each stream of the per-stream reference.
+        for name in ("scatter_min_u32" if mode == "packed" else "zresolve_sorted_entries",
+                     "color_image"):
+            expected[name] = expected.get(name, 0) + (1 + batch) * len(rig.frames)
     return expected
 
 
@@ -1355,7 +1597,8 @@ def drive_node(w: int, h: int, truth: bool, timed: bool, card: str) -> tuple:
     segsum = sum(4 if t.target_grid_rebuilt else 2
                  for k in card_runs for pipe in runs[k][0]._pair_pipes or ()
                  for t in pipe.telemetry)
-    expected = {"zresolve_winner_rgb": len(card_runs) * NODE_FRAMES, "segsum_sorted": segsum}
+    expected = {"zresolve_winner_rgb": len(card_runs) * NODE_FRAMES,
+                "color_image": len(card_runs) * NODE_FRAMES, "segsum_sorted": segsum}
     uploads = [u for k in card_runs for u in runs[k][2]]
     metrics[f"node_{size}_upload_ms_mean"] = float(np.mean(uploads))
     metrics[f"node_{size}_upload_ms_max"] = float(np.max(uploads))
@@ -1483,10 +1726,19 @@ def phase_rig(card: str, errs: dict) -> tuple:
     for key in RIG_PROFILED:
         fn, _ = rig_case(rigs[key[:3]], key[3], DEVICE)
         args = rig_args(rigs[key[:3]], 0, DEVICE)
-        fn(*args)
-        wall, busy, n_ops = profiled(lambda: fn(*args), "[12]", top=6)
-        log(f"[12] profiled warm frame ({key[0]}x{key[1]}x{key[2]} {key[3]}): wall {wall:.3f} ms, "
-            f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), {n_ops} device ops on {card}")
+        ops = {}
+        # The tiled frame also runs with the color tail the image kernel
+        # replaced (decode and stack), for the launches before and after.
+        for label in ("before", "after") if key[3].startswith("tiled") else ("after",):
+            with legacy_color_tail() if label == "before" else contextlib.nullcontext():
+                fn(*args)
+                wall, busy, ops[label] = profiled(lambda: fn(*args), "[12]", top=6)
+            log(f"[12] profiled warm frame ({key[0]}x{key[1]}x{key[2]} {key[3]}, {label} the "
+                f"image kernel): wall {wall:.3f} ms, device busy {busy:.3f} ms "
+                f"({100 * busy / wall:.1f}%), {ops[label]} device ops on {card}")
+        if "before" in ops and ops["before"] - ops["after"] < 10:
+            raise AssertionError(f"rig {key}: the image kernel saves "
+                                 f"{ops['before'] - ops['after']} device ops, expected >= 10")
     streams = time_streams(rigs[RIG_STREAMS_TIMED], card)
     log(f"[12] summary ms/frame {json.dumps(frame_ms)} node {json.dumps(metrics)} on {card}")
     return launches, streams, {**frame_ms, **metrics}
@@ -1716,12 +1968,12 @@ def run_deployment_recorded(manifest: dict, dev) -> tuple:
 
 
 def deployment_expected(summary: dict) -> dict:
-    """A card deployment's launches: B2 and three B4 planes per fused frame
+    """A card deployment's launches: B2 and one B4 image per fused frame
     (fusion_default.yaml: tiled with the z-buffer, Gauss tail); B5 4 per
     rebuilt target grid and 2 per cached tick."""
     frames, ticks, rebuilds = (summary[k] for k in ("frames", "registration_ticks",
                                                     "registration_grid_rebuilds"))
-    return {"zresolve_sorted_entries": frames, "gauss3x3_plane": 3 * frames,
+    return {"zresolve_sorted_entries": frames, "gauss3x3_image": frames,
             "segsum_sorted": 4 * rebuilds + 2 * (ticks - rebuilds)}
 
 
@@ -1876,8 +2128,8 @@ def phase_node_timing(scenes, tmp: str, card: str) -> tuple:
                 log(f"[13e] process_profiled {size}, mean of frames 2-{len(rows) - 1} (ms): "
                     + " ".join(f"{k}={v:.4f}" for k, v in laps.items()) + f" on {card}")
                 metrics[f"node_{size}_laps_ms"] = laps
-    # Each fused frame: B2 and three B4 planes (tiled with the z-buffer).
-    return {"zresolve_sorted_entries": frames, "gauss3x3_plane": 3 * frames}, metrics
+    # Each fused frame: B2 and one B4 image (tiled with the z-buffer).
+    return {"zresolve_sorted_entries": frames, "gauss3x3_image": frames}, metrics
 
 
 def phase_filters_and_deployment(scenes, card: str, errs: dict) -> tuple:
@@ -2013,6 +2265,10 @@ def main() -> int:
                 **time_modes(scene_848, card), **time_modes(scene_720, card)}
     kernel_ms = {**time_kernels(card), **time_prep_kernels(scene_848, card)}
     time_prep_kernels(scene_720, card)
+    tail_ms = time_color_tail(card)
+    tail_ops = {f"dual {s.w}x{s.h}": profile_color_tail(s, card) for s in (scene_848, scene_720)}
+    log(f"[6] summary color tail ms (image kernel, replaced tail) {json.dumps(tail_ms)}; device "
+        f"ops per tiled frame (before, after) {json.dumps(tail_ops)} on {card}")
     log(f"[6] summary ms/frame {json.dumps(frame_ms)} on {card}")
     tick_ms = {}
     for tag, (scene, pipe, host_ms) in timed.items():
@@ -2026,7 +2282,7 @@ def main() -> int:
     seg = time_segsum(reg_scenes, card)
     log(f"[9] summary ms/tick {json.dumps(tick_ms)} on {card}")
     log(f"[6], [9] done at {time.perf_counter() - t_start:.1f} s")
-    k, p, _, b_ms, b_by = seg[f"dual {reg_scenes[-1].w}x{reg_scenes[-1].h} cloud at 0.01 m"]
+    k, p, _, b_ms, b_by = seg[f"dual {reg_scenes[-1].w}x{reg_scenes[-1].h} cloud at 0.01 m"][:5]
 
     launches = {k: fusion_launches[k] + mode_launches[k] + reg_launches[k] + rig_launches[k]
                 + filt_launches[k] for k in fusion_launches}

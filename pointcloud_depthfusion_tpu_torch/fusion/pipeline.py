@@ -4,8 +4,8 @@ Port of pointcloud_depthfusion_tpu/fusion/pipeline.py (the reference's
 FusionNode::processSyncedFrames, fusion_node.cpp:700-811), run eagerly:
 
     [align (B2)] → filter → deproject ×2 → transform (right composed with
-    the virtual pose) → merge → project → z-resolve → decode → color
-    filter (B4)
+    the virtual pose) → merge → project → z-resolve → color tail (B4: the
+    winner's decode and color filter in one launch)
 
 Every render mode of the JAX package: "tiled" and "exact" resolve on B1/B2,
 "packed" and "indexed" on one u32 scatter-min, and "pallas" runs the
@@ -27,7 +27,7 @@ from pointcloud_depthfusion_tpu_torch.device import resolve_device
 from pointcloud_depthfusion_tpu_torch.ops import filters as F
 from pointcloud_depthfusion_tpu_torch.ops import render as R
 from pointcloud_depthfusion_tpu_torch.ops.align import align_depth_to_color, auto_footprint
-from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda
+from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda, zresolve_cuda
 from pointcloud_depthfusion_tpu_torch.ops.cuda.fuse_prep_cuda import fuse_prep, pose_params
 
 RENDER_MODES = ("tiled", "exact", "indexed", "packed", "pallas")
@@ -178,8 +178,9 @@ def _merge(left: Frameset, right: Frameset, xyz_l, xyz_r, val_l, val_r):
 
 
 def _render(x, y, z, val, rgb24, config: FusionConfig, fused_intrinsics: Intrinsics):
-    """Project and resolve the merged cloud in the configured mode:
-    ((r, g, b) planes, z-buffer or None)."""
+    """Project and resolve the merged cloud in the configured mode: (the
+    packed winner (H·W,) of tiled/exact or the (r, g, b) planes of
+    packed/indexed, z-buffer or None)."""
     w_f, h_f = fused_intrinsics.width, fused_intrinsics.height
     z_near, z_far = _z_range(config)
     mirror = config.mirror_image
@@ -195,18 +196,29 @@ def _render(x, y, z, val, rgb24, config: FusionConfig, fused_intrinsics: Intrins
         rp, gp, bp, zb = R.indexed_winner_gather(covered, widx, z, None, None, None, rgb24=rgb24)
         return tuple(p.reshape(h_f, w_f) for p in (rp, gp, bp)), zb.reshape(h_f, w_f)
     # tiled and exact share one winner contract; exact always emits the z-buffer
-    return R.project_zbuffer_tiled_planar(
+    return R.tiled_winner_planar(
         x, y, z, None, None, None, val, fused_intrinsics, mirror=mirror,
-        return_planes=True, need_zbuf=config.emit_zbuf or config.render_mode == "exact",
-        rgb24=rgb24,
+        need_zbuf=config.emit_zbuf or config.render_mode == "exact", rgb24=rgb24,
     )
 
 
-def _filter_image(planes, config: FusionConfig) -> torch.Tensor:
-    rp, gp, bp = planes
-    if config.filter_fused_color:
-        return F.filter_color_planar(rp, gp, bp, config.use_median_filter)
-    return torch.stack([rp, gp, bp], dim=-1)
+def color_mode(config: FusionConfig) -> Optional[str]:
+    """The fused-image color filter, as a B4 image mode: "median" or
+    "gauss" (``use_median_filter``), None when ``filter_fused_color`` is
+    off."""
+    if not config.filter_fused_color:
+        return None
+    return "median" if config.use_median_filter else "gauss"
+
+
+def _color_tail(color, config: FusionConfig, fused_intrinsics: Intrinsics) -> torch.Tensor:
+    """The (H, W, 3) fused image from a packed winner or from (r, g, b)
+    planes: one B4 image launch (decode or interleave, and filter)."""
+    mode = color_mode(config)
+    if isinstance(color, tuple):
+        return filters_cuda.planes_image(color, mode)
+    return filters_cuda.winner_image(color, fused_intrinsics.height, fused_intrinsics.width,
+                                     mode)
 
 
 def fuse_posed(
@@ -237,9 +249,10 @@ def fuse_posed(
     xyz_l = G.transform_planar(*xyz_l, fused_t)
     xyz_r = G.transform_planar(*xyz_r, right_total)
     merged = _merge(left, right, xyz_l, xyz_r, val_l, val_r)
-    planes, zbuf = _render(*merged, config, fused_intrinsics)
+    color, zbuf = _render(*merged, config, fused_intrinsics)
     return FusionResult(
-        image=_filter_image(planes, config), zbuf=zbuf, valid_left=val_l, valid_right=val_r,
+        image=_color_tail(color, config, fused_intrinsics), zbuf=zbuf, valid_left=val_l,
+        valid_right=val_r,
         timestamp=left.timestamp,
     )
 
@@ -271,10 +284,11 @@ def _fuse_pallas(
     ]
     idx = torch.cat([i.reshape(-1) for i, _ in preps])
     key = torch.cat([k.reshape(-1) for _, k in preps])
-    buf = zresolve_cuda.scatter_min_u32(idx, key, fused_intrinsics.width * fused_intrinsics.height)
-    image, zbuf = R.unpack_packed_buffer(buf, fused_intrinsics, z_near, z_far)
-    if config.filter_fused_color:
-        image = F.filter_color(image, config.use_median_filter)
+    h_f, w_f = fused_intrinsics.height, fused_intrinsics.width
+    buf = zresolve_cuda.scatter_min_u32(idx, key, w_f * h_f)
+    *planes, zbuf = R._decode_packed_planes(buf, z_near, z_far)
+    image = _color_tail(tuple(p.reshape(h_f, w_f) for p in planes), config, fused_intrinsics)
+    zbuf = zbuf.reshape(h_f, w_f)
     # valid_* carry the depth-window validity, as in the other modes (the
     # keys' sentinel marks in-bounds projections, a different set).
     _, val_l = F.filter_depth(left.depth, left.depth_scale, config.min_depth, config.max_depth)
@@ -407,9 +421,9 @@ class FusionPipeline:
         timer.lap("transform", xyz_l[0])
         merged = _merge(left, right, xyz_l, xyz_r, val_l, val_r)
         timer.lap("fuse", merged[0], merged[4])
-        planes, zbuf = _render(*merged, cfg, self.fused_intrinsics)
-        timer.lap("project", *planes)
-        image = _filter_image(planes, cfg)
+        color, zbuf = _render(*merged, cfg, self.fused_intrinsics)
+        timer.lap("project", *(color if isinstance(color, tuple) else (color,)))
+        image = _color_tail(color, cfg, self.fused_intrinsics)
         timer.lap("filter_image", image)
         host_image = image.cpu().numpy()
         timer.lap("copy_from_gpu")

@@ -48,6 +48,7 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from pointcloud_depthfusion_tpu_torch.device import resolve_device
 
@@ -124,11 +125,20 @@ def _build_camera(spec: dict, index: int, n: int, width: int, height: int):
     return cam
 
 
-def run_deployment(manifest: dict, device=None, frames: Optional[int] = None) -> dict:
+def run_deployment(manifest: dict, cpu: bool = False, frames: Optional[int] = None, *,
+                   device=None) -> dict:
     """Stand up every node of ``manifest`` on ``device`` (``None``: the
-    card), run, and return a summary."""
+    card), run, and return a summary. ``cpu=True`` (the JAX package's
+    signature) means ``device="cpu"``; with another ``device`` it raises.
+    ``cpu`` takes only a bool, so a device passed in its place raises."""
     from pointcloud_depthfusion_tpu_torch.nodes.image_node import ImageNode
 
+    if not isinstance(cpu, (bool, np.bool_)):
+        raise TypeError(f"cpu must be a bool, got {cpu!r}: pass a device as device=")
+    if cpu:
+        if device is not None and torch.device(device).type != "cpu":
+            raise ValueError(f"cpu=True contradicts device={device!r}")
+        device = "cpu"
     device = resolve_device(device)
     width = int(manifest.get("width", 424))
     height = int(manifest.get("height", 240))
@@ -248,8 +258,7 @@ def main() -> None:
                         help="override the manifest's frame bound")
     parser.add_argument("--cpu", action="store_true", help="run on the CPU, not the card")
     args = parser.parse_args()
-    summary = run_deployment(load_manifest(args.deployment), device="cpu" if args.cpu else None,
-                             frames=args.frames)
+    summary = run_deployment(load_manifest(args.deployment), cpu=args.cpu, frames=args.frames)
     print(json.dumps(summary))
 
 

@@ -111,12 +111,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.scatter_min_u32_launch.restype = i
     lib.fuse_prep_launch.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
     lib.fuse_prep_launch.restype = i
-    lib.filter3x3_launch.argtypes = [p, p, i, i, i, p]
-    lib.filter3x3_launch.restype = i
+    lib.color3x3_launch.argtypes = [p, p, p, p, p, i, i, p, i, i, i, i, p]
+    lib.color3x3_launch.restype = i
     lib.morph_launch.argtypes = [p, p, i, i, i, p]
     lib.morph_launch.restype = i
-    lib.segsum_launch.argtypes = [p, p, p, i, i, i, p, p, p]
+    lib.segsum_scratch_ints.argtypes = [i, i]
+    lib.segsum_scratch_ints.restype = ctypes.c_longlong
+    lib.segsum_launch.argtypes = [p, p, i, i, i, p, p, p, p]
     lib.segsum_launch.restype = i
+    lib.segsum_runs_launch.argtypes = [p, p, p, i, i, i, p, p, p]
+    lib.segsum_runs_launch.restype = i
     return lib
 
 

@@ -10,12 +10,13 @@ are dropped, so ``padded_slots(n_slots)`` keeps its meaning as the id of
 an invalid entry.
 
 Both versions add each slot's channels in entry order, starting from 0:
-the kernel over a stable sort of the entries by slot (the JAX package
-sorts the same way before its kernel), the plain version by ``index_add_``,
-which adds in entry order on the CPU. So the kernel's result is the same
-in every run and equals, bit for bit, the plain version run on the CPU.
-On a CUDA tensor ``index_add_`` adds with atomics, in an order that
-changes from run to run.
+the kernel over its own stable radix placement of the entries by slot
+(the JAX package sorts with XLA before its kernel; the port runs no
+library sort), the plain version by ``index_add_``, which adds in entry
+order on the CPU. So the kernel's result is the same in every run and
+equals, bit for bit, the plain version run on the CPU. On a CUDA tensor
+``index_add_`` adds with atomics, in an order that changes from run to
+run.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel, or raises.
@@ -87,13 +88,14 @@ def segsum_sorted(
     if slot.device.type != "cuda":
         raise ValueError(f"unsupported device {slot.device}")
     n, c = values.shape
-    ss, si = torch.sort(slot, stable=True)
     sums = torch.empty((n_slots, c), dtype=torch.float32, device=slot.device)
     rep = torch.empty((n_slots,), dtype=torch.int32, device=slot.device)
     lib = _build.load()
+    scratch = torch.empty((lib.segsum_scratch_ints(n, n_slots),), dtype=torch.int32,
+                          device=slot.device)
     stream = torch.cuda.current_stream(slot.device).cuda_stream
     _build.check(
-        lib.segsum_launch(ss.data_ptr(), si.data_ptr(), values.data_ptr(), n, c, n_slots,
+        lib.segsum_launch(slot.data_ptr(), values.data_ptr(), n, c, n_slots, scratch.data_ptr(),
                           sums.data_ptr(), rep.data_ptr(), stream),
         "segsum_launch",
     )

@@ -6,8 +6,9 @@ tensors of one device:
   * minmax threshold, >0 mask with ROI, mask count;
   * morphology with the 21-point element (5×5 less its corners), on
     kernel B6 (ops/cuda/morph_cuda.py);
-  * median and binomial Gauss filters; the fused image's 3×3 uint8 case
-    runs as kernel B4 (ops/cuda/filters_cuda.py);
+  * median and binomial Gauss filters; the 3×3 uint8 case of an (H, W)
+    or (H, W, C) image runs as kernel B4 (ops/cuda/filters_cuda.py), one
+    launch per four channels;
   * bilateral, temporal, hole fill, decimation, the spatial
     edge-preserving filter and the disparity transforms (plain PyTorch, as
     the JAX package computes them outside any Pallas kernel).
@@ -171,10 +172,19 @@ def filter_depth(
 # ---------------------------------------------------------------------------
 
 
-def _per_plane(img: torch.Tensor, fn) -> torch.Tensor:
-    if img.dim() == 2:
-        return fn(img.contiguous())
-    return torch.stack([fn(img[..., c].contiguous()) for c in range(img.shape[-1])], dim=-1)
+def _b4_takes(img: torch.Tensor) -> bool:
+    """Whether kernel B4 takes ``img``: uint8, (H, W) or (H, W, C ≥ 1)."""
+    return img.dtype == torch.uint8 and (img.dim() == 2 or (img.dim() == 3 and img.shape[-1] > 0))
+
+
+def _b4_image(img: torch.Tensor, mode: str) -> torch.Tensor:
+    """Kernel B4 over every channel of ``img``: one launch per group of up
+    to four channels."""
+    step = filters_cuda.MAX_CHANNELS
+    if img.dim() == 2 or img.shape[-1] <= step:
+        return filters_cuda.interleaved_image(img.contiguous(), mode)
+    return torch.cat([filters_cuda.interleaved_image(img[..., c:c + step].contiguous(), mode)
+                      for c in range(0, img.shape[-1], step)], dim=-1)
 
 
 def _interior_only(filtered: torch.Tensor, original: torch.Tensor, border: int) -> torch.Tensor:
@@ -203,8 +213,8 @@ def median_filter(img: torch.Tensor, radius: int = 1, interior_roi: bool = True)
     ``interior_roi=True`` keeps the border's input values (the NPP call
     pattern). The 3×3 interior uint8 case runs as kernel B4; radius 1
     otherwise uses the same 19-exchange network, larger radii a sort."""
-    if radius == 1 and interior_roi and img.dtype == torch.uint8:
-        return _per_plane(img, filters_cuda.median3x3_plane)
+    if radius == 1 and interior_roi and _b4_takes(img):
+        return _b4_image(img, "median")
     taps = _shifted(img, radius)
     if radius == 1:
         med = median9(taps)
@@ -230,8 +240,8 @@ def gauss_filter(img: torch.Tensor, size: int = 3, interior_roi: bool = True) ->
     replicate-padded input: every product and sum is exact in f32 up to the
     5×5 u16 case (256·65535 < 2²⁴), so ``floor(x + 0.5)`` is NPP's
     rounding. No convolution call: cuDNN would run it in TF32."""
-    if size == 3 and interior_roi and img.dtype == torch.uint8:
-        return _per_plane(img, filters_cuda.gauss3x3_plane)
+    if size == 3 and interior_roi and _b4_takes(img):
+        return _b4_image(img, "gauss")
     radius = size // 2
     k1 = _gauss_kernel_1d(size)
     x = img.to(torch.float32)
@@ -251,10 +261,9 @@ def filter_color(color: torch.Tensor, use_median: bool) -> torch.Tensor:
 
 
 def filter_color_planar(r, g, b, use_median: bool) -> torch.Tensor:
-    """:func:`filter_color` on (H, W) channel planes, stacked to
-    (H, W, 3) once."""
-    f = filters_cuda.median3x3_plane if use_median else filters_cuda.gauss3x3_plane
-    return torch.stack([f(r), f(g), f(b)], dim=-1)
+    """:func:`filter_color` on (H, W) channel planes, written as the
+    (H, W, 3) image by one B4 launch."""
+    return filters_cuda.planes_image((r, g, b), "median" if use_median else "gauss")
 
 
 def bilateral_filter_depth(

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
-from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda
+from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda, zresolve_cuda
+from pointcloud_depthfusion_tpu_torch.ops.cuda.filters_cuda import decode_winner_planes
 from pointcloud_depthfusion_tpu_torch.ops.cuda.zresolve_cuda import (
     INT32_MAX,
     INVALID_PIX,
@@ -100,16 +101,6 @@ def compute_pixel_indices_planar(
     return flat, z, in_bounds
 
 
-def decode_winner_planes(covered: torch.Tensor, mrgb: torch.Tensor):
-    """(covered mask, packed r<<16|g<<8|b winner) → (r, g, b) u8 planes,
-    black where uncovered."""
-    win = torch.where(covered, mrgb, 0)
-    rp = ((win >> 16) & 0xFF).to(torch.uint8)
-    gp = ((win >> 8) & 0xFF).to(torch.uint8)
-    bp = (win & 0xFF).to(torch.uint8)
-    return rp, gp, bp
-
-
 def pack_rgb(color_u8: torch.Tensor) -> torch.Tensor:
     """(..., 3) uint8 -> (...,) int32 key r<<16 | g<<8 | b."""
     c = color_u8.to(torch.int32)
@@ -128,21 +119,21 @@ def unpack_rgb(packed: torch.Tensor) -> torch.Tensor:
 
 
 def _resolve_exact(idx, zc, ok, rgb24, n_px: int, need_zbuf: bool):
-    """Exact winners of flat entries: (covered, packed winner rgb, min z bits
-    or None). Dropped entries carry INVALID_PIX and MAX fields."""
+    """Exact winners of flat entries: (packed winner rgb, min z bits or
+    None), INT32_MAX where no entry landed. Dropped entries carry
+    INVALID_PIX and MAX fields."""
     okf = ok.reshape(-1)
     pix = torch.where(okf, idx.reshape(-1), INVALID_PIX)
     zbits = torch.where(okf, zc.to(torch.float32).reshape(-1).view(torch.int32), INT32_MAX)
     rgb = torch.where(okf, rgb24.to(torch.int32).reshape(-1), INT32_MAX)
     if need_zbuf:
         minz, mrgb = zresolve_cuda.zresolve_sorted_entries(pix, zbits, rgb, n_px)
-        return minz != INT32_MAX, mrgb, minz
-    mrgb = zresolve_cuda.zresolve_winner_rgb(pix, zbits, rgb, n_px)
-    return mrgb != INT32_MAX, mrgb, None
+        return mrgb, minz
+    return zresolve_cuda.zresolve_winner_rgb(pix, zbits, rgb, n_px), None
 
 
-def _zbuf(covered, minz, h: int, w: int) -> torch.Tensor:
-    return torch.where(covered, minz.view(torch.float32), FLT_MAX).reshape(h, w)
+def _zbuf(minz, h: int, w: int) -> torch.Tensor:
+    return torch.where(minz != INT32_MAX, minz.view(torch.float32), FLT_MAX).reshape(h, w)
 
 
 def project_zbuffer_tiled_planar(
@@ -164,18 +155,42 @@ def project_zbuffer_tiled_planar(
     ``need_zbuf=False`` runs the image-only resolve (B1) and returns None
     for the z-buffer; the image is identical. ``rgb24``: optional packed
     color ``(r<<16)|(g<<8)|b`` with z's shape; when given, r/g/b are
-    ignored. Returns (image (H, W, 3) u8 or its three planes, zbuf).
+    ignored. Returns (image (H, W, 3) u8 or its three planes, zbuf); the
+    image is decoded by one launch of kernel B4 (``winner_image``).
     """
+    w, h = intrinsics.width, intrinsics.height
+    mrgb, zbuf = tiled_winner_planar(x, y, z, r, g, b, valid, intrinsics, mirror,
+                                     need_zbuf, rgb24)
+    if return_planes:
+        covered = mrgb != INT32_MAX
+        return tuple(p.reshape(h, w) for p in decode_winner_planes(covered, mrgb)), zbuf
+    return filters_cuda.winner_image(mrgb, h, w), zbuf
+
+
+def tiled_winner_planar(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    z: torch.Tensor,
+    r: Optional[torch.Tensor],
+    g: Optional[torch.Tensor],
+    b: Optional[torch.Tensor],
+    valid: torch.Tensor,
+    intrinsics: Intrinsics,
+    mirror: bool = False,
+    need_zbuf: bool = True,
+    rgb24: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The resolve of :func:`project_zbuffer_tiled_planar` before its
+    decode: (packed winner rgb (H·W,) int32, INT32_MAX exactly where
+    uncovered; zbuf (H, W) or None). A valid entry's rgb24 lies below
+    INT32_MAX, so the winner alone marks coverage, with or without the
+    z-buffer."""
     w, h = intrinsics.width, intrinsics.height
     idx, zc, ok = compute_pixel_indices_planar(x, y, z, valid, intrinsics, mirror)
     if rgb24 is None:
         rgb24 = (r.to(torch.int32) << 16) | (g.to(torch.int32) << 8) | b.to(torch.int32)
-    covered, mrgb, minz = _resolve_exact(idx, zc, ok, rgb24, w * h, need_zbuf)
-    zbuf = None if minz is None else _zbuf(covered, minz, h, w)
-    rp, gp, bp = (p.reshape(h, w) for p in decode_winner_planes(covered, mrgb))
-    if return_planes:
-        return (rp, gp, bp), zbuf
-    return torch.stack([rp, gp, bp], dim=-1), zbuf
+    mrgb, minz = _resolve_exact(idx, zc, ok, rgb24, w * h, need_zbuf)
+    return mrgb, None if minz is None else _zbuf(minz, h, w)
 
 
 def project_zbuffer_planar(
@@ -211,11 +226,12 @@ def project_zbuffer(
     w, h = intrinsics.width, intrinsics.height
     flat = points.reshape(-1, 3).to(torch.float32)
     idx, zc, ok = compute_pixel_indices(flat, valid.reshape(-1), intrinsics, mirror)
-    covered, mrgb, minz = _resolve_exact(idx, zc, ok, pack_rgb(colors.reshape(-1, 3)), w * h, True)
+    mrgb, minz = _resolve_exact(idx, zc, ok, pack_rgb(colors.reshape(-1, 3)), w * h, True)
+    covered = mrgb != INT32_MAX
     img = unpack_rgb(torch.where(covered, mrgb, 0)).reshape(h, w, 3)
     if background is not None:
         img = torch.where(covered.reshape(h, w, 1), img, background)
-    return img, _zbuf(covered, minz, h, w)
+    return img, _zbuf(minz, h, w)
 
 
 # -- packed: one u32 scatter-min of zq14 << 18 | RGB666 -----------------------

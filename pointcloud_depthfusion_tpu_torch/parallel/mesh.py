@@ -10,7 +10,8 @@ runs on the z-buffer kernels of ops/cuda/zresolve_cuda.py:
 - ``tiled`` with the z-buffer: kernel B2;
 - ``tiled`` with ``multi_stream=True``: kernel B7, the (S, N) feed;
 - ``packed``: the uint32 scatter-min of (zq14 | RGB666) keys;
-- ``config.filter_fused_color``: kernel B4 on each channel plane.
+- the color tail (decode, interleave, and with ``config.filter_fused_color``
+  the 3×3 filter): one launch of kernel B4's image kernel per call.
 
 :func:`rig_fuse` and :func:`batched_rig_fuse` build the step on one device
 (``device=None``: the card) and return ``fn(depth, color, depth_scale,
@@ -31,9 +32,10 @@ import torch
 from pointcloud_depthfusion_tpu_torch.core import geometry as G
 from pointcloud_depthfusion_tpu_torch.core.camera import Distortion, Intrinsics
 from pointcloud_depthfusion_tpu_torch.device import resolve_device
-from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
+from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, color_mode
 from pointcloud_depthfusion_tpu_torch.ops import filters as F
 from pointcloud_depthfusion_tpu_torch.ops import render as R
+from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
 from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
 from pointcloud_depthfusion_tpu_torch.ops.cuda.zresolve_cuda import (
     INT32_MAX,
@@ -199,8 +201,8 @@ def _packed_rig_body(calib: _RigCalibration, fused_intrinsics: Intrinsics,
 
     def unpack(merged):
         h_f, w_f = fused_intrinsics.height, fused_intrinsics.width
-        rp, gp, bp = (p.reshape(h_f, w_f) for p in _decode_rgb666_planes(merged))
-        return _finish_planes(rp, gp, bp, config)
+        return _finish_planes([p.reshape(h_f, w_f) for p in _decode_rgb666_planes(merged)],
+                              config)
 
     return project_one, local_buffer, unpack
 
@@ -213,13 +215,18 @@ def _decode_rgb666_planes(merged: torch.Tensor):
     return rp, gp, bp
 
 
-def _finish_planes(rp, gp, bp, config: FusionConfig) -> torch.Tensor:
-    """The fused-image tail of every rig path: the reference's fused color
-    filter (fusion_node.cpp:789 → kernels.cu:594-653) when
-    ``config.filter_fused_color``; (H, W) planes in, (H, W, 3) u8 out."""
-    if config.filter_fused_color:
-        return F.filter_color_planar(rp, gp, bp, config.use_median_filter)
-    return torch.stack([rp, gp, bp], dim=-1)
+def _finish_planes(planes, config: FusionConfig) -> torch.Tensor:
+    """The fused-image tail of the packed rig paths: the reference's fused
+    color filter (fusion_node.cpp:789 → kernels.cu:594-653) when
+    ``config.filter_fused_color``; (..., H, W) planes in, (..., H, W, 3)
+    u8 out, each (H, W) image apart; one B4 launch."""
+    return B4.planes_image(planes, color_mode(config))
+
+
+def _finish_winner(mrgb, config: FusionConfig, h_f: int, w_f: int) -> torch.Tensor:
+    """The tail of the tiled rig paths: packed winners (..., H·W) in,
+    decoded and filtered (..., H, W, 3) u8 out; one B4 launch."""
+    return B4.winner_image(mrgb, h_f, w_f, color_mode(config))
 
 
 def _rig_render_mode(config: FusionConfig) -> str:
@@ -325,13 +332,10 @@ def _tiled_rig_body(calib: _RigCalibration, fused_intrinsics: Intrinsics,
         pix, zbits, rgb = entries_all(depth, color, depth_scale, cam_to_virtual)
         return Z.zresolve_winner_rgb(pix, zbits, rgb, n_px)
 
-    def unpack(minz, mrgb):
-        # Image-only callers pass minz=mrgb: coverage is then the RGB
-        # sentinel (a covered rgb24 is below INT32_MAX).
-        covered = minz != INT32_MAX
-        h_f, w_f = fused_intrinsics.height, fused_intrinsics.width
-        rp, gp, bp = (p.reshape(h_f, w_f) for p in R.decode_winner_planes(covered, mrgb))
-        return _finish_planes(rp, gp, bp, config)
+    def unpack(mrgb):
+        # The winner's rgb alone marks coverage: a covered rgb24 is below
+        # INT32_MAX, the resolve's empty value, with or without the z-buffer.
+        return _finish_winner(mrgb, config, fused_intrinsics.height, fused_intrinsics.width)
 
     return entries_one, entries_all, local_minbufs, unpack, local_winner_rgb
 
@@ -387,14 +391,13 @@ def rig_fuse(
         if not config.emit_zbuf and not multi_stream:
             def fn(depth, color, depth_scale, cam_to_virtual):
                 check_count(depth)
-                mrgb = local_winner(depth, color, depth_scale, cam_to_virtual)
-                return unpack_t(mrgb, mrgb)
+                return unpack_t(local_winner(depth, color, depth_scale, cam_to_virtual))
         else:
             def fn(depth, color, depth_scale, cam_to_virtual):
                 check_count(depth)
-                minz, mrgb = local_minbufs(depth, color, depth_scale, cam_to_virtual,
-                                           multi_stream=multi_stream)
-                return unpack_t(minz, mrgb)
+                _, mrgb = local_minbufs(depth, color, depth_scale, cam_to_virtual,
+                                        multi_stream=multi_stream)
+                return unpack_t(mrgb)
     else:
         _, local_buffer, unpack = _packed_rig_body(calib, fused, config, z_near, z_far)
 
@@ -457,9 +460,8 @@ def batched_rig_fuse(
                           else color.reshape(n, h, w, 3))
             p, z, rr = entries_all(depth.reshape(n, h, w), color_flat, depth_scale.reshape(-1),
                                    cam_to_virtual.reshape(n, 4, 4), pix_offsets=stream_offsets)
-            minz, mrgb = Z.zresolve_sorted_entries(p, z, rr, total_px)
-            rp, gp, bp = R.decode_winner_planes(minz != INT32_MAX, mrgb)
-            return _finish_batch_planes(rp, gp, bp, config, batch, h_f, w_f)
+            _, mrgb = Z.zresolve_sorted_entries(p, z, rr, total_px)
+            return _finish_winner(mrgb.reshape(batch, n_px), config, h_f, w_f)
     else:
         project_one, _, _ = _packed_rig_body(calib, fused, config, z_near, z_far)
 
@@ -477,18 +479,10 @@ def batched_rig_fuse(
                     keys.append(key.reshape(-1))
             merged = Z.scatter_min_u32(torch.cat(idxs).to(torch.int32), torch.cat(keys),
                                        total_px)
-            rp, gp, bp = _decode_rgb666_planes(merged)
-            return _finish_batch_planes(rp, gp, bp, config, batch, h_f, w_f)
+            return _finish_planes([p.reshape(batch, h_f, w_f)
+                                   for p in _decode_rgb666_planes(merged)], config)
 
     fn.device = device
     return fn
 
 
-def _finish_batch_planes(rp, gp, bp, config: FusionConfig, batch: int, h_f: int, w_f: int):
-    """Per-stream tail of the batched rig: each stream's image filters on
-    its own plane (a 3×3 filter over a stacked (B·H, W) plane would bleed
-    across stream boundaries)."""
-    rp, gp, bp = (p.reshape(batch, h_f, w_f) for p in (rp, gp, bp))
-    if not config.filter_fused_color:
-        return torch.stack([rp, gp, bp], dim=-1)
-    return torch.stack([_finish_planes(rp[i], gp[i], bp[i], config) for i in range(batch)])

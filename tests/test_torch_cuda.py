@@ -61,6 +61,56 @@ def test_filter_kernel_matches_plain(cuda, h, w):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("h,w", [(0, 5), (1, 1), (2, 5), (5, 1), (3, 3), (7, 13), (17, 129),
+                                 (131, 33), (848, 480)])
+def test_image_kernel_matches_plain(cuda, h, w):
+    """B4's image kernel in every input form and mode, bit for bit against
+    its plain version on the card and on the CPU; one launch a call,
+    counted by mode."""
+    g = torch.Generator(device=cuda).manual_seed(h * 1000 + w)
+    mrgb = torch.randint(0, 1 << 24, (2, h * w), generator=g, device=cuda, dtype=torch.int32)
+    mrgb[torch.rand((2, h * w), generator=g, device=cuda) < 0.2] = B4.INT32_MAX
+    img = torch.randint(0, 256, (h, w, 3), generator=g, device=cuda, dtype=torch.uint8)
+    planes = [img[..., c].contiguous() for c in range(3)]
+    cases = [
+        (lambda t, m: B4.winner_image(t, h, w, m), lambda t, m: B4.winner_image_plain(t, h, w, m),
+         mrgb),
+        (lambda t, m: B4.winner_image(t, h, w, m), lambda t, m: B4.winner_image_plain(t, h, w, m),
+         torch.cat([mrgb[0, :1], mrgb[0]])[1:]),  # 4 B past a 16 B boundary
+        (B4.planes_image, B4.planes_image_plain, planes),
+        (B4.interleaved_image, B4.interleaved_image_plain, img),
+        (B4.interleaved_image, B4.interleaved_image_plain, img[..., 1:].contiguous()),
+        (B4.interleaved_image, B4.interleaved_image_plain,
+         torch.cat([img, planes[0][..., None]], dim=-1)),
+        (B4.interleaved_image, B4.interleaved_image_plain, planes[2]),
+    ]
+    before = dict(B4.launches)
+    for kernel, plain, x in cases:
+        host_x = [t.cpu() for t in x] if isinstance(x, list) else x.cpu()
+        for mode in (None, "gauss", "median"):
+            got = kernel(x, mode)
+            assert torch.equal(got, plain(x, mode)), (mode, got.shape)
+            assert torch.equal(got.cpu(), kernel(host_x, mode)), (mode, got.shape)
+    torch.cuda.synchronize()
+    for name in ("color_image", "gauss3x3_image", "median3x3_image"):
+        assert B4.launches[name] - before[name] == (len(cases) if h * w else 0)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 6])
+def test_color_filters_of_any_channel_count_run_b4(cuda, c):
+    """median_filter and gauss_filter of a u8 (H, W, C) image run B4, one
+    launch per four channels, equal to the CPU bit for bit."""
+    from pointcloud_depthfusion_tpu_torch.ops import filters as TF
+
+    g = torch.Generator(device=cuda).manual_seed(c)
+    img = torch.randint(0, 256, (37, 61, c), generator=g, device=cuda, dtype=torch.uint8)
+    for fn, name in ((TF.gauss_filter, "gauss3x3_image"), (TF.median_filter, "median3x3_image")):
+        before = B4.launches[name]
+        got = fn(img)
+        assert B4.launches[name] - before == (c + 3) // 4
+        assert torch.equal(got.cpu(), fn(img.cpu()))
+
+
 @pytest.mark.parametrize("h,w", [(0, 5), (1, 1), (1, 9), (2, 2), (5, 3), (7, 129), (131, 33),
                                  (480, 848)])
 def test_morph_kernel_matches_plain(cuda, h, w):
@@ -110,6 +160,10 @@ def test_filter_depth_with_morphology_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("n,c,n_slots,spread", [
     (0, 10, 64, 64), (1, 1, 1, 1), (1000, 16, 7, 7), (4099, 10, 1 << 10, 1 << 10),
     (70_001, 10, 1 << 15, 300), (70_001, 10, 1 << 15, 1 << 15), (513, 3, 0, 1),
+    # long runs (a coarse voxel): thousands of entries a slot
+    (230_400, 10, 1 << 15, 40), (100_000, 16, 1000, 3),
+    # more than 2^16 slots: three radix passes
+    (50_000, 2, (1 << 16) + 3, (1 << 16) + 3),
 ])
 def test_segsum_kernel_matches_plain(cuda, n, c, n_slots, spread):
     g = torch.Generator(device=cuda).manual_seed(n + c)
@@ -147,6 +201,18 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     p = torch.zeros((8, 6), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         B4.gauss3x3_plane(p.t())
+    with pytest.raises(ValueError, match="contiguous"):
+        B4.interleaved_image(p.t(), "gauss")
+    with pytest.raises(ValueError, match="contiguous"):
+        B4.winner_image(torch.zeros((6, 8), dtype=torch.int32, device=cuda).t(), 2, 3)
+    with pytest.raises(ValueError, match="int32"):
+        B4.winner_image(torch.zeros(48, dtype=torch.int64, device=cuda), 6, 8)
+    with pytest.raises(ValueError, match="planes on"):
+        B4.planes_image([p, p, p.cpu()], "median")
+    with pytest.raises(ValueError, match="uint8"):
+        B4.planes_image([p, p, p.to(torch.int32)], "median")
+    with pytest.raises(ValueError, match="65535"):
+        B4.winner_image(torch.zeros((65536, 1), dtype=torch.int32, device=cuda), 1, 1)
     i = torch.zeros(8, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         Z.zresolve_winner_rgb(i, i, torch.zeros(16, dtype=torch.int32, device=cuda)[::2], 4)

@@ -65,6 +65,24 @@ def test_filter_color_planar_and_hwc(use_median):
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(TF.filter_color(torch.from_numpy(img), use_median).numpy(),
                                   np.asarray(JF.filter_color(jnp.asarray(img), use_median)))
+    # B4's mode=None only interleaves the planes
+    assert torch.equal(B4.planes_image([torch.from_numpy(np.ascontiguousarray(p)) for p in planes]),
+                       torch.from_numpy(img))
+
+
+@pytest.mark.parametrize("use_median", [False, True])
+@pytest.mark.parametrize("channels", [1, 2, 4, 6])
+def test_color_filters_of_any_channel_count(channels, use_median):
+    """The 3×3 u8 route of median_filter and gauss_filter (kernel B4, up to
+    four channels a call) on (H, W, C) images, against JAX."""
+    img = np.random.default_rng(channels).integers(0, 256, (9, 14, channels)).astype(np.uint8)
+    t, j = torch.from_numpy(img), jnp.asarray(img)
+    if use_median:
+        got, want = TF.median_filter(t, 1), JF.median_filter(j, 1)
+    else:
+        got, want = TF.gauss_filter(t, 3), JF.gauss_filter(j, 3)
+    assert got.shape == t.shape and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("h,w", [(1, 1), (2, 5), (5, 2)])
