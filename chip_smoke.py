@@ -5,9 +5,13 @@
 
 Builds the port's CUDA kernels from ``pointcloud_depthfusion_tpu_torch/csrc``
 (nvcc, into ``build/torch_kernels/``) and holds each kernel against its plain
-PyTorch version at the main paths' shapes: among them B4's image kernel (the
-fused frame's whole color tail in one launch, phase 3) and B5's own grouping
-(phase 7), each also timed against the design it replaced. Then it drives the two services
+PyTorch version at the main paths' shapes, on the card and on the CPU: among
+them the z-resolve (phase 2: B1/B2, their masked feed and the depth-only
+resolve on synthetic entries, on the real entries of a warm ``tiled`` frame
+at both sizes, on 100,000 entries over 64 pixels and through growing and
+shrinking n_px on one persistent key buffer), B4's image kernel (the fused
+frame's whole color tail in one launch, phase 3) and B5 (phase 7). Then it
+drives the two services
 the shipped deployment runs, each against the same pipeline on the CPU at
 dual 848×480 and dual 1280×720, with every launch counter set to 0 just
 before and read just after:
@@ -31,8 +35,10 @@ before and read just after:
         ``FusionNodeApp.run`` over prerendered frames, timed.
 
 It times frames, ticks and kernels with CUDA events and a host clock ending
-in ``synchronize()``, and profiles one warm tick. Any failure raises and
-exits non-zero; there is no result without a CUDA device.
+in ``synchronize()`` (the resolve also by the profiler's device time and by
+its bare launch), profiles one warm tick and warm frames, and fails a
+profiled frame whose device ops exceed FRAME_OPS_CEILING. Any failure raises
+and exits non-zero; there is no result without a CUDA device.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels with their launches, errors and times.
@@ -140,6 +146,11 @@ RIG_ROIS = [(40, 20, 760, 420), None, (-1, -1, -1, -1), (100, 0, 700, 480)]
 RIG_BATCHED = ((8, 848, 480), 2)  # the rig whose cameras make B streams, and B
 RIG_STREAMS_TIMED = (8, 848, 480)  # B7 is timed on this rig's entries
 RIG_PROFILED = ((8, 848, 480, "tiled_image_only"), (4, 848, 480, "packed"))
+# Device ops of a profiled warm frame: the dual tiled frame (image only,
+# Gauss tail) at both sizes and the rig's unfiltered 8×848×480 tiled frame.
+# Each is the count the one-launch resolve and the masked feed measured
+# (PERF.md §5); a frame above its ceiling fails the run.
+FRAME_OPS_CEILING = {"dual": 125, "rig tiled_image_only": 77}
 B7_SHAPES = ((8, 407_040), (4, 921_600))  # (S, N = n_px)
 # The node: RigFusionNodeApp.run on RIG_CAMERAS synthetic cameras, inline
 # sweeps every NODE_EVERY frames, on the card and on the CPU, at each size
@@ -291,34 +302,148 @@ def resolve_entries(n: int, n_px: int, seed: int, device):
     return pix, z, rgb
 
 
-def phase_resolve(errs: dict) -> None:
+def real_resolve_feed(scene: Scene) -> tuple:
+    """The resolve's arguments in a warm dual ``tiled`` frame (vertical,
+    mirrored, with the z-buffer) of ``scene``, recorded from
+    ``FusionPipeline.process``: the masked feed (idx, z, ok, rgb24) as flat
+    tensors, and n_px. The entries lie in camera-pixel order, as the render
+    makes them."""
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, FusionPipeline
+    from pointcloud_depthfusion_tpu_torch.ops import render as R
+
+    intr, fs = framesets(scene, DEVICE)
+    cfg = FusionConfig.create(vertical_image=True, mirror_image=True, device=DEVICE)
+    pipe = FusionPipeline(intr, cfg, device=DEVICE)
+    pipe.set_right_transform(scene.t_rl)
+    left, right = fs[0]
+    pipe.process(left, right)
+    seen = []
+    inner = R._resolve_exact
+
+    def record(idx, zc, ok, rgb24, n_px, need_zbuf):
+        seen.append((idx, zc, ok, rgb24, n_px))
+        return inner(idx, zc, ok, rgb24, n_px, need_zbuf)
+
+    R._resolve_exact = record
+    try:
+        pipe.process(left, right)
+    finally:
+        R._resolve_exact = inner
+    torch.cuda.synchronize()
+    idx, zc, ok, rgb24, n_px = seen[-1]
+    return (idx.reshape(-1).contiguous(), zc.reshape(-1).contiguous(),
+            ok.reshape(-1).contiguous(), rgb24.reshape(-1).contiguous(), n_px)
+
+
+def masked_entries(idx, zc, ok, rgb24) -> tuple:
+    """The JAX API's (pix, zbits, rgb) of a masked feed: the ``torch.where``
+    composition the render ran before the masked kernel (INVALID_PIX and
+    INT32_MAX where ``ok`` is off)."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda.zresolve_cuda import INT32_MAX, INVALID_PIX
+
+    return (torch.where(ok, idx, INVALID_PIX), torch.where(ok, zc.view(torch.int32), INT32_MAX),
+            torch.where(ok, rgb24, INT32_MAX))
+
+
+def synthetic_feed(n: int, n_px: int, seed: int) -> tuple:
+    """:func:`resolve_entries` as a masked feed (idx, z, ok, rgb24, n_px):
+    ``ok`` off on the invalid entries, whose :func:`masked_entries` are
+    then the entries themselves."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda.zresolve_cuda import INVALID_PIX
+
+    pix, z, rgb = resolve_entries(n, n_px, seed, DEVICE)
+    return pix, z.view(torch.float32), pix != INVALID_PIX, rgb, n_px
+
+
+def contention_feed(n: int, n_px: int, seed: int) -> tuple:
+    """A masked feed of ``n`` entries on ``n_px`` pixels (many a pixel), z
+    from four values so that rgb breaks most ties, a tenth masked off."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    idx = torch.randint(0, n_px, (n,), generator=g, device=DEVICE, dtype=torch.int32)
+    z = torch.randint(1, 5, (n,), generator=g, device=DEVICE, dtype=torch.int32) << 23
+    rgb = torch.randint(0, 1 << 24, (n,), generator=g, device=DEVICE, dtype=torch.int32)
+    ok = torch.rand(n, generator=g, device=DEVICE) >= 0.1
+    return idx, z.view(torch.float32), ok, rgb, n_px
+
+
+def keys_clean() -> bool:
+    """Every key buffer of the resolve all-ones, as each call must leave it."""
     from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
 
-    for n_px in (407_040, 921_600):
-        n = 2 * n_px
-        pix, z, rgb = resolve_entries(n, n_px, seed=n_px, device=DEVICE)
-        kz, kr = Z.zresolve_sorted_entries(pix, z, rgb, n_px)
-        pz, pr = Z.zresolve_sorted_entries_plain(pix, z, rgb, n_px)
-        kd, kd2 = Z.zresolve_sorted_entries(pix, z, None, n_px)
-        pd, _ = Z.zresolve_sorted_entries_plain(pix, z, None, n_px)
-        kw = Z.zresolve_winner_rgb(pix, z, rgb, n_px)
-        pw = Z.zresolve_winner_rgb_plain(pix, z, rgb, n_px)
-        lz, lr = Z.zresolve_sorted_entries(pix, z, rgb, n_px, legacy_feed=True)
+    torch.cuda.synchronize()
+    return all(bool((k == -1).all()) for k in Z._key_buffers.values())
+
+
+# The kernel line's row of each resolve that is not a JAX API wrapper.
+ERR_ROWS = {"depth-only": "zresolve_sorted_entries", "masked B2": "zresolve_sorted_entries",
+            "masked B1": "zresolve_winner_rgb"}
+
+
+def check_feed(label: str, feed: tuple, errs: dict) -> None:
+    """Every resolve of a masked feed against its plain version on the card
+    and on the CPU, bit for bit: B2, B2-legacy, B1 and the depth-only B2 on
+    the JAX API's entries (:func:`masked_entries`), and B1/B2 on the masked
+    feed itself; then every key buffer must be all-ones again."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
+
+    idx, zf, ok, rgb24, n_px = feed
+    pix, z, rgb = masked_entries(idx, zf, ok, rgb24)
+    host = [t.cpu() for t in (pix, z, rgb)]
+    host_feed = [t.cpu() for t in (idx, zf, ok, rgb24)]
+    cases = {
+        "zresolve_sorted_entries": (lambda e: Z.zresolve_sorted_entries(*e, n_px), (pix, z, rgb),
+                                    host, lambda: Z.zresolve_sorted_entries_plain(pix, z, rgb, n_px)),
+        "zresolve_sorted_entries_legacy": (
+            lambda e: Z.zresolve_sorted_entries(*e, n_px, legacy_feed=True), (pix, z, rgb), host,
+            lambda: Z.zresolve_sorted_entries_plain(pix, z, rgb, n_px)),
+        "zresolve_winner_rgb": (lambda e: (Z.zresolve_winner_rgb(*e, n_px),), (pix, z, rgb), host,
+                                lambda: (Z.zresolve_winner_rgb_plain(pix, z, rgb, n_px),)),
+        "depth-only": (lambda e: Z.zresolve_sorted_entries(e[0], e[1], None, n_px), (pix, z, rgb),
+                       host, lambda: Z.zresolve_sorted_entries_plain(pix, z, None, n_px)),
+        "masked B2": (lambda e: Z.zresolve_masked(*e, n_px, True), (idx, zf, ok, rgb24),
+                      host_feed, lambda: Z.zresolve_masked_plain(idx, zf, ok, rgb24, n_px, True)),
+        "masked B1": (lambda e: Z.zresolve_masked(*e, n_px, False)[:1], (idx, zf, ok, rgb24),
+                      host_feed, lambda: Z.zresolve_masked_plain(idx, zf, ok, rgb24, n_px, False)[:1]),
+    }
+    worst, results = {}, {}
+    for name, (run, card_in, cpu_in, plain) in cases.items():
+        got, want, cpu = run(card_in), plain(), run(cpu_in)
+        results[name] = got
         torch.cuda.synchronize()
-        b2 = max(max_abs_err(kz, pz), max_abs_err(kr, pr), max_abs_err(kd, pd))
-        b1 = max_abs_err(kw, pw)
-        legacy = max(max_abs_err(lz, pz), max_abs_err(lr, pr))
-        exact = (torch.equal(kz, pz) and torch.equal(kr, pr) and torch.equal(kd, pd)
-                 and torch.equal(kd2, kd) and torch.equal(kw, pw)
-                 and torch.equal(lz, pz) and torch.equal(lr, pr))
-        empty = float((kz == Z.INT32_MAX).float().mean())
-        log(f"[2] resolve N={n} n_px={n_px}: B2 max_abs_err={b2} B2-legacy max_abs_err={legacy} "
-            f"B1 max_abs_err={b1} bit-exact={exact} empty_fraction={empty:.4f}")
-        if not exact:
-            raise AssertionError(f"resolve kernel differs from plain at n_px={n_px}")
-        errs["zresolve_sorted_entries"] = max(errs["zresolve_sorted_entries"], b2)
-        errs["zresolve_sorted_entries_legacy"] = max(errs["zresolve_sorted_entries_legacy"], legacy)
-        errs["zresolve_winner_rgb"] = max(errs["zresolve_winner_rgb"], b1)
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        worst[name] = err
+        if not all(torch.equal(a, b) and torch.equal(a.cpu(), c)
+                   for a, b, c in zip(got, want, cpu)):
+            raise AssertionError(f"resolve {name} on {label} differs from plain: {err}")
+        row = ERR_ROWS.get(name, name)
+        errs[row] = max(errs[row], err)
+    if not keys_clean():
+        raise AssertionError(f"resolve on {label} left a key buffer dirty")
+    n_in = int(((pix >= 0) & (pix < n_px)).sum())
+    empty = float((results["zresolve_sorted_entries"][0] == Z.INT32_MAX).float().mean())
+    log(f"[2] resolve {label} (N={pix.numel()} n_px={n_px}, {n_in} entries inside, empty "
+        f"fraction {empty:.4f}): {', '.join(f'{k} {v}' for k, v in worst.items())} max_abs_err; "
+        f"each bit-exact to its plain version on the card and to the CPU; key buffers all-ones")
+
+
+def phase_resolve(scenes, errs: dict) -> None:
+    """B1/B2 (and the masked feed, B2-legacy, the depth-only resolve) on
+    synthetic entries at both fused sizes, on the real entries of a warm
+    ``tiled`` frame of each scene, on 100,000 entries over 64 pixels, on
+    entries all invalid, and through a sequence of growing and shrinking
+    n_px over one stream's persistent key buffer."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda.zresolve_cuda import INVALID_PIX
+
+    for n_px in (407_040, 921_600):
+        check_feed(f"synthetic n_px={n_px}", synthetic_feed(2 * n_px, n_px, seed=n_px), errs)
+    for scene in scenes:
+        check_feed(f"real dual {scene.w}x{scene.h} tiled frame", real_resolve_feed(scene), errs)
+    check_feed("contention (100,000 entries on 64 pixels)", contention_feed(100_000, 64, 64), errs)
+    idx, zf, ok, rgb24, _ = synthetic_feed(4096, 1000, seed=11)
+    check_feed("all invalid", (torch.full_like(idx, INVALID_PIX), zf, ok, rgb24, 1000), errs)
+    # Grow, shrink, grow: every call on the one buffer, with other entries.
+    for k, n_px in enumerate((1000, 407_040, 5000, 921_600, 64, 407_040, 1_000_000)):
+        check_feed(f"grow/shrink step {k}", synthetic_feed(2 * n_px + 3, n_px, seed=100 + k), errs)
 
 
 # -- phase 3: 3×3 filter kernel ----------------------------------------------
@@ -409,41 +534,6 @@ def phase_image_filters(errs: dict) -> None:
                     raise AssertionError(f"{name} differs from plain: {what} {h}x{w}: {err}")
         log(f"[3] image kernel {h}x{w}: {', '.join(cases)}; copy, gauss and median bit-exact to "
             f"the plain version on the card and to the CPU")
-
-
-def legacy_planes_tail(planes, mode):
-    """The color tail of u8 planes before the image kernel: one B4 launch
-    per channel plane (the per-plane API), then a stack."""
-    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
-
-    if mode is None:
-        return torch.stack(list(planes), dim=-1)
-    f = B4.median3x3_plane if mode == "median" else B4.gauss3x3_plane
-    return torch.stack([f(p) for p in planes], dim=-1)
-
-
-def legacy_winner_tail(mrgb, h: int, w: int, mode):
-    """The color tail of a packed winner before the image kernel: the
-    coverage compare and ``decode_winner_planes`` (a where, then shifts,
-    masks and casts per channel), then :func:`legacy_planes_tail`."""
-    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
-
-    planes = [p.reshape(h, w) for p in B4.decode_winner_planes(mrgb != B4.INT32_MAX, mrgb)]
-    return legacy_planes_tail(planes, mode)
-
-
-@contextlib.contextmanager
-def legacy_color_tail():
-    """Within the block every color tail of the package runs as it did
-    before the image kernel (one unbatched image per call)."""
-    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
-
-    saved = B4.winner_image, B4.planes_image
-    B4.winner_image, B4.planes_image = legacy_winner_tail, legacy_planes_tail
-    try:
-        yield
-    finally:
-        B4.winner_image, B4.planes_image = saved
 
 
 # -- phases 4-5: the main path ---------------------------------------------
@@ -792,35 +882,111 @@ def turns(kernel, plain, iters: int = 20) -> tuple:
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
 
 
-def time_kernels(card: str) -> dict:
-    """Kernel, plain version and library call at the fused frame's shapes
-    (dual 848×480): {name: (ms, plain_ms, library_ms or None, bound_ms,
-    bound_by)}."""
-    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
+def resolve_feeds(scenes) -> dict:
+    """{label: masked feed (idx, z, ok, rgb24, n_px)}: the synthetic entries
+    at dual 848×480 (uniformly random pixels; the kernel table's inputs
+    since its first row), the real entries of a warm ``tiled`` frame of
+    each scene, and 100,000 entries on 64 pixels (contention)."""
+    n_px = 480 * 848
+    feeds = {"synthetic 848x480": synthetic_feed(2 * n_px, n_px, seed=7)}
+    for scene in scenes:
+        feeds[f"real {scene.w}x{scene.h}"] = real_resolve_feed(scene)
+    feeds["contention 100000 on 64"] = contention_feed(100_000, 64, 64)
+    return feeds
+
+
+def bare_resolve(pix, z, ok, rgb, n_px: int, minz, mrgb):
+    """One launch of the resolve on prebuilt outputs and the stream's key
+    buffer, with no checks: the launch alone, as the wrapper makes it."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import _build
     from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
 
-    n_px = 480 * 848
-    n = 2 * n_px
-    pix, z, rgb = resolve_entries(n, n_px, seed=7, device=DEVICE)
-    # The library's resolve: one scatter_reduce_(amin) of prebuilt int64
-    # keys (z bits high, rgb low) into a dump-slotted pixel buffer.
-    idx = torch.where((pix >= 0) & (pix < n_px), pix, n_px).to(torch.int64)
-    keys = (z.to(torch.int64) << 32) | (rgb.to(torch.int64) + (1 << 31))
-    buf = torch.full((n_px + 1,), torch.iinfo(torch.int64).max, dtype=torch.int64, device=DEVICE)
-    library = cuda_ms(lambda: buf.scatter_reduce_(0, idx, keys, "amin", include_self=True), 20)
-    entries_in = 12 * n
-    pairs = {
-        "zresolve_winner_rgb": (lambda: Z.zresolve_winner_rgb(pix, z, rgb, n_px),
-                                lambda: Z.zresolve_winner_rgb_plain(pix, z, rgb, n_px),
-                                library, bound(entries_in + 4 * n_px, n)),
-        "zresolve_sorted_entries": (lambda: Z.zresolve_sorted_entries(pix, z, rgb, n_px),
-                                    lambda: Z.zresolve_sorted_entries_plain(pix, z, rgb, n_px),
-                                    library, bound(entries_in + 8 * n_px, n)),
-        "zresolve_sorted_entries_legacy": (
-            lambda: Z.zresolve_sorted_entries(pix, z, rgb, n_px, legacy_feed=True),
-            lambda: Z.zresolve_sorted_entries_plain(pix, z, rgb, n_px),
-            library, bound(entries_in + 8 * n_px, n)),
-    }
+    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
+    keys = Z._key_buffer(pix.device, stream, n_px)
+    args = (pix.data_ptr(), z.data_ptr(), None if ok is None else ok.data_ptr(),
+            None if rgb is None else rgb.data_ptr(), pix.numel(), ok is not None,
+            rgb is not None, keys.data_ptr(), n_px, None if minz is None else minz.data_ptr(),
+            None if mrgb is None else mrgb.data_ptr(), stream)
+    return lambda: lib.zresolve_launch(*args)
+
+
+def time_resolve(scenes, card: str) -> dict:
+    """B1, B2, B2-legacy, the depth-only resolve and the masked feed's B1
+    and B2 on each feed of :func:`resolve_feeds`: the wrapper (CUDA events
+    around a loop of calls, in turns with the plain version), the
+    profiler's device time by kernel, and the bare launch; beside the bound
+    and ``scatter_reduce_``'s time on the same entries. Returns the
+    synthetic feed's {name: (ms, plain_ms, library_ms, bound_ms, bound_by)}
+    (the kernel table's row) and logs every feed."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
+
+    rows = {}
+    for label, (idx, zf, ok, rgb24, n_px) in resolve_feeds(scenes).items():
+        pix, z, rgb = masked_entries(idx, zf, ok, rgb24)
+        n = pix.numel()
+        # The library's resolve: one scatter_reduce_(amin) of prebuilt int64
+        # keys (z bits high, rgb low) into a dump-slotted pixel buffer.
+        slot = torch.where((pix >= 0) & (pix < n_px), pix, n_px).to(torch.int64)
+        keys = (z.to(torch.int64) << 32) | (rgb.to(torch.int64) + (1 << 31))
+        buf = torch.full((n_px + 1,), torch.iinfo(torch.int64).max, dtype=torch.int64,
+                         device=DEVICE)
+        library = cuda_ms(lambda: buf.scatter_reduce_(0, slot, keys, "amin", include_self=True),
+                          20)
+        minz = torch.empty(n_px, dtype=torch.int32, device=DEVICE)
+        mrgb = torch.empty_like(minz)
+        valid = float(((pix >= 0) & (pix < n_px)).float().mean())
+        # 12 B in per entry (8 B depth-only, 13 B masked), 4-8 B out per
+        # pixel; a compare and an atomic per entry.
+        cases = {
+            "zresolve_winner_rgb": (lambda: Z.zresolve_winner_rgb(pix, z, rgb, n_px),
+                                    lambda: Z.zresolve_winner_rgb_plain(pix, z, rgb, n_px),
+                                    bare_resolve(pix, z, None, rgb, n_px, None, mrgb),
+                                    bound(12 * n + 4 * n_px, 2 * n)),
+            "zresolve_sorted_entries": (
+                lambda: Z.zresolve_sorted_entries(pix, z, rgb, n_px),
+                lambda: Z.zresolve_sorted_entries_plain(pix, z, rgb, n_px),
+                bare_resolve(pix, z, None, rgb, n_px, minz, mrgb), bound(12 * n + 8 * n_px, 2 * n)),
+            "zresolve_sorted_entries_legacy": (
+                lambda: Z.zresolve_sorted_entries(pix, z, rgb, n_px, legacy_feed=True),
+                lambda: Z.zresolve_sorted_entries_plain(pix, z, rgb, n_px),
+                bare_resolve(pix, z, None, rgb, n_px, minz, mrgb), bound(12 * n + 8 * n_px, 2 * n)),
+            "depth-only": (lambda: Z.zresolve_sorted_entries(pix, z, None, n_px),
+                           lambda: Z.zresolve_sorted_entries_plain(pix, z, None, n_px),
+                           bare_resolve(pix, z, None, None, n_px, minz, None),
+                           bound(8 * n + 4 * n_px, 2 * n)),
+            "masked B1": (lambda: Z.zresolve_masked(idx, zf, ok, rgb24, n_px, False),
+                          lambda: Z.zresolve_masked_plain(idx, zf, ok, rgb24, n_px, False),
+                          bare_resolve(idx, zf, ok, rgb24, n_px, None, mrgb),
+                          bound(13 * n + 4 * n_px, 2 * n)),
+            "masked B2": (lambda: Z.zresolve_masked(idx, zf, ok, rgb24, n_px, True),
+                          lambda: Z.zresolve_masked_plain(idx, zf, ok, rgb24, n_px, True),
+                          bare_resolve(idx, zf, ok, rgb24, n_px, minz, mrgb),
+                          bound(13 * n + 8 * n_px, 2 * n)),
+        }
+        for name, (kernel, plain, bare, (b_ms, b_by)) in cases.items():
+            k, p, each = turns(kernel, plain)
+            dk, parts = device_time(kernel)
+            bare_ms = cuda_ms(bare, 50)
+            if label.startswith("synthetic") and name in REPLACES:
+                rows[name] = (k, p, library, b_ms, b_by)
+            log(f"[6] {name} on the {label} entries (N={n} n_px={n_px}, {valid:.4f} valid): "
+                f"wrapper {k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}), device {dk:.5f} ms ("
+                + ", ".join(f"{m} {v:.5f}" for m, v in parts.items())
+                + f"), bare launch {bare_ms:.5f} ms, plain {p:.5f} ms ({each[2]:.5f}, "
+                f"{each[3]:.5f}), library {library:.5f} ms (scatter_reduce_ amin), bound "
+                f"{b_ms:.5f} ms by {b_by} on {card}")
+    if not keys_clean():
+        raise AssertionError("the timed resolves left a key buffer dirty")
+    return rows
+
+
+def time_kernels(card: str) -> dict:
+    """The image kernel and its plain version at a vertical dual 848×480
+    frame's shape: {name: (ms, plain_ms, library_ms or None, bound_ms,
+    bound_by)}."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
+
+    pairs = {}
     # The image kernel on the packed winner of a vertical dual 848×480
     # frame ((H, W) = (848, 480)): 4 B in and 3 B out per pixel; about 5
     # operations a pixel to decode, 60 more for the Gauss of three channels
@@ -837,22 +1003,17 @@ def time_kernels(card: str) -> dict:
     for name, (kernel, plain, lib_ms, (b_ms, b_by)) in pairs.items():
         k, p, each = turns(kernel, plain)
         out[name] = (k, p, lib_ms, b_ms, b_by)
-        shape = f"{fh}x{fw} packed winner" if "image" in name else f"N={n} n_px={n_px}"
-        log(f"[6] {name} at {shape}: kernel {k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}), "
+        log(f"[6] {name} at {fh}x{fw} packed winner: kernel {k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}), "
             f"plain {p:.5f} ms ({each[2]:.5f}, {each[3]:.5f}), library "
-            f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms (scatter_reduce_ amin)'}, "
-            f"bound {b_ms:.5f} ms by {b_by} on {card}")
+            f"none, bound {b_ms:.5f} ms by {b_by} on {card}")
     return out
 
 
 def time_color_tail(card: str) -> dict:
-    """B4's image kernel against the tail it replaced, on the same inputs,
-    in turns (old, new, new, old), at both fused frames' (vertical) shapes:
-    form (a), the packed winner, against the decode, three plane launches
-    (or none) and a stack; form (b), three u8 planes, against three plane
-    launches and a stack; each also by its device time alone
-    (:func:`device_time`). {"<form> <mode> <h>x<w>": (new ms, old ms, new
-    device ms, old device ms)}."""
+    """B4's image kernel at both fused frames' (vertical) shapes, in both
+    input forms: (a) the packed winner, (b) three u8 planes; by CUDA events
+    around its wrapper and by its device time alone (:func:`device_time`).
+    {"<form> <mode> <h>x<w>": (ms, device ms)}."""
     from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
 
     g = torch.Generator(device=DEVICE).manual_seed(19)
@@ -861,27 +1022,21 @@ def time_color_tail(card: str) -> dict:
         mrgb, img = image_inputs(h, w, g)
         planes = [img[..., c].contiguous() for c in range(3)]
         for mode in IMAGE_MODES:
-            forms = {"winner": (lambda m=mode: B4.winner_image(mrgb, h, w, m),
-                                lambda m=mode: legacy_winner_tail(mrgb, h, w, m))}
+            forms = {"winner": lambda m=mode: B4.winner_image(mrgb, h, w, m)}
             if mode is not None:
-                forms["planes"] = (lambda m=mode: B4.planes_image(planes, m),
-                                   lambda m=mode: legacy_planes_tail(planes, m))
-            for form, (new, old) in forms.items():
-                k, o, each = turns(new, old)
-                dk, _ = device_time(new)
-                do, _ = device_time(old)
+                forms["planes"] = lambda m=mode: B4.planes_image(planes, m)
+            for form, fn in forms.items():
+                ms = cuda_ms(fn, 20)
+                dk, _ = device_time(fn)
                 key = f"{form} {mode or 'copy'} {h}x{w}"
-                out[key] = (k, o, dk, do)
-                log(f"[6] color tail, {key}: image kernel {k:.5f} ms ({each[0]:.5f}, "
-                    f"{each[1]:.5f}; device {dk:.5f}), the tail it replaced {o:.5f} ms "
-                    f"({each[2]:.5f}, {each[3]:.5f}; device {do:.5f}) on {card}")
+                out[key] = (ms, dk)
+                log(f"[6] color tail, {key}: image kernel {ms:.5f} ms (device {dk:.5f}) on {card}")
     return out
 
 
-def profile_color_tail(scene: Scene, card: str) -> tuple:
+def profile_frame(scene: Scene, card: str) -> int:
     """One warm dual ``tiled`` frame (image only, Gauss tail) under the
-    profiler, with the image kernel and with the tail it replaced: (device
-    ops before, after). Fails unless the image kernel saves 10 or more."""
+    profiler: its device ops. Fails above FRAME_OPS_CEILING["dual"]."""
     from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, FusionPipeline
 
     intr, fs = framesets(scene, DEVICE)
@@ -890,18 +1045,15 @@ def profile_color_tail(scene: Scene, card: str) -> tuple:
     pipe = FusionPipeline(intr, cfg, device=DEVICE)
     pipe.set_right_transform(scene.t_rl)
     left, right = fs[0]
-    counts = {}
-    for label in ("before", "after"):
-        with legacy_color_tail() if label == "before" else contextlib.nullcontext():
-            pipe.process(left, right)
-            wall, busy, counts[label] = profiled(lambda: pipe.process(left, right), "[6]", top=4)
-        log(f"[6] profiled warm frame (dual {scene.w}x{scene.h} tiled image only, {label} the "
-            f"image kernel): wall {wall:.3f} ms, device busy {busy:.3f} ms, {counts[label]} "
-            f"device ops on {card}")
-    if counts["before"] - counts["after"] < 10:
-        raise AssertionError(f"the image kernel saves {counts['before'] - counts['after']} "
-                             f"device ops a frame, expected 10 or more")
-    return counts["before"], counts["after"]
+    pipe.process(left, right)
+    wall, busy, ops = profiled(lambda: pipe.process(left, right), "[6]", top=4)
+    log(f"[6] profiled warm frame (dual {scene.w}x{scene.h} tiled image only): wall {wall:.3f} "
+        f"ms, device busy {busy:.3f} ms, {ops} device ops (ceiling {FRAME_OPS_CEILING['dual']}) "
+        f"on {card}")
+    if ops > FRAME_OPS_CEILING["dual"]:
+        raise AssertionError(f"dual {scene.w}x{scene.h} tiled frame: {ops} device ops, ceiling "
+                             f"{FRAME_OPS_CEILING['dual']}")
+    return ops
 
 
 def time_modes(scene: Scene, card: str, warmup: int = 3, iters: int = 20) -> dict:
@@ -1078,27 +1230,10 @@ def phase_segsum(scenes, errs: dict) -> None:
     errs["segsum_sorted"] = max(errs["segsum_sorted"], worst)
 
 
-def legacy_segsum(slot, values, n_slots: int):
-    """B5 as it was before its redesign: a stable ``torch.sort`` of the
-    slots with int64 indices, then one thread per slot finding its run by
-    binary search (``segsum_runs_launch``). Not counted."""
-    from pointcloud_depthfusion_tpu_torch.ops.cuda import _build
-
-    n, c = values.shape
-    ss, si = torch.sort(slot, stable=True)
-    sums = torch.empty((n_slots, c), dtype=torch.float32, device=slot.device)
-    rep = torch.empty((n_slots,), dtype=torch.int32, device=slot.device)
-    _build.check(_build.load().segsum_runs_launch(
-        ss.data_ptr(), si.data_ptr(), values.data_ptr(), n, c, n_slots, sums.data_ptr(),
-        rep.data_ptr(), torch.cuda.current_stream().cuda_stream), "segsum_runs_launch")
-    return sums, rep
-
-
 def time_segsum(scenes, card: str) -> dict:
-    """B5 kernel vs plain vs ``index_add_`` (the sums half alone), and vs
-    the design it replaced (stable sort + binary-search runs, timed in
-    turns on the same inputs), on the registration clouds at the coarse and
-    the fine resolution and on the second call of a tick (the 2^15-entry
+    """B5 kernel vs plain vs ``index_add_`` (the sums half alone), and its
+    device time by kernel, on the registration clouds at the coarse and the
+    fine resolution and on the second call of a tick (the 2^15-entry
     downsampled table)."""
     from pointcloud_depthfusion_tpu_torch.ops import voxel as V
     from pointcloud_depthfusion_tpu_torch.ops.cuda import segsum_cuda as B5
@@ -1118,25 +1253,16 @@ def time_segsum(scenes, card: str) -> dict:
                 idx = torch.where((slot >= 0) & (slot < n_slots), slot, n_slots).to(torch.int64)
                 acc = torch.zeros((n_slots + 1, c), device=DEVICE)
                 lib = cuda_ms(lambda: acc.index_add_(0, idx, chans), 20)
-                sort_ms = cuda_ms(lambda: torch.sort(slot, stable=True), 20)
-                old = legacy_segsum(slot, chans, n_slots)
-                new = B5.segsum_sorted(slot, chans, n_slots)
-                if not all(torch.equal(a, b) for a, b in zip(old, new)):
-                    raise AssertionError(f"segsum {what}: the redesign differs from the old design")
-                k, o, turn = turns(lambda: B5.segsum_sorted(slot, chans, n_slots),
-                                   lambda: legacy_segsum(slot, chans, n_slots))
-                _, p, each = turns(lambda: B5.segsum_sorted(slot, chans, n_slots),
+                k, p, each = turns(lambda: B5.segsum_sorted(slot, chans, n_slots),
                                    lambda: B5.segsum_sorted_plain(slot, chans, n_slots))
                 b_ms, b_by = bound(4 * n + 4 * n * c + 4 * n_slots * c + 4 * n_slots, 2 * n * c)
                 dk, parts = device_time(lambda: B5.segsum_sorted(slot, chans, n_slots))
-                do, _ = device_time(lambda: legacy_segsum(slot, chans, n_slots))
-                out[what] = (k, p, lib, b_ms, b_by, o, dk, do)
+                out[what] = (k, p, lib, b_ms, b_by, dk)
                 log(f"[9] segsum_sorted {what} (N={n} C={c} n_slots={n_slots}): kernel "
-                    f"{k:.5f} ms ({turn[0]:.5f}, {turn[1]:.5f}; {each[0]:.5f}, {each[1]:.5f}; "
-                    f"device {dk:.5f}: " + ", ".join(f"{m} {v:.5f}" for m, v in parts.items())
-                    + f"), the old design {o:.5f} ms ({turn[2]:.5f}, {turn[3]:.5f}; device "
-                    f"{do:.5f}; of which the stable sort {sort_ms:.5f} ms), plain {p:.5f} ms, "
-                    f"index_add_ (sums only) {lib:.5f} ms, bound {b_ms:.5f} ms by {b_by} on {card}")
+                    f"{k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}; device {dk:.5f}: "
+                    + ", ".join(f"{m} {v:.5f}" for m, v in parts.items())
+                    + f"), plain {p:.5f} ms ({each[2]:.5f}, {each[3]:.5f}), index_add_ (sums "
+                    f"only) {lib:.5f} ms, bound {b_ms:.5f} ms by {b_by} on {card}")
     return out
 
 
@@ -1726,19 +1852,14 @@ def phase_rig(card: str, errs: dict) -> tuple:
     for key in RIG_PROFILED:
         fn, _ = rig_case(rigs[key[:3]], key[3], DEVICE)
         args = rig_args(rigs[key[:3]], 0, DEVICE)
-        ops = {}
-        # The tiled frame also runs with the color tail the image kernel
-        # replaced (decode and stack), for the launches before and after.
-        for label in ("before", "after") if key[3].startswith("tiled") else ("after",):
-            with legacy_color_tail() if label == "before" else contextlib.nullcontext():
-                fn(*args)
-                wall, busy, ops[label] = profiled(lambda: fn(*args), "[12]", top=6)
-            log(f"[12] profiled warm frame ({key[0]}x{key[1]}x{key[2]} {key[3]}, {label} the "
-                f"image kernel): wall {wall:.3f} ms, device busy {busy:.3f} ms "
-                f"({100 * busy / wall:.1f}%), {ops[label]} device ops on {card}")
-        if "before" in ops and ops["before"] - ops["after"] < 10:
-            raise AssertionError(f"rig {key}: the image kernel saves "
-                                 f"{ops['before'] - ops['after']} device ops, expected >= 10")
+        fn(*args)
+        wall, busy, ops = profiled(lambda: fn(*args), "[12]", top=6)
+        ceiling = FRAME_OPS_CEILING.get(f"rig {key[3]}")
+        log(f"[12] profiled warm frame ({key[0]}x{key[1]}x{key[2]} {key[3]}): wall {wall:.3f} "
+            f"ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), {ops} device ops"
+            f"{'' if ceiling is None else f' (ceiling {ceiling})'} on {card}")
+        if ceiling is not None and ops > ceiling:
+            raise AssertionError(f"rig {key}: {ops} device ops, ceiling {ceiling}")
     streams = time_streams(rigs[RIG_STREAMS_TIMED], card)
     log(f"[12] summary ms/frame {json.dumps(frame_ms)} node {json.dumps(metrics)} on {card}")
     return launches, streams, {**frame_ms, **metrics}
@@ -2189,10 +2310,10 @@ def main() -> int:
 
     errs = {name: 0 for name in REPLACES}
     # [2], [3], [10] kernels against their plain versions
-    phase_resolve(errs)
-    phase_filters(errs)
     scene_848 = build_scene(848, 480)
     scene_720 = build_scene(1280, 720)
+    phase_resolve((scene_848, scene_720), errs)
+    phase_filters(errs)
     phase_prep((scene_848, scene_720), errs)
     phase_align((scene_848, scene_720))
 
@@ -2263,12 +2384,13 @@ def main() -> int:
     # [6], [9] timing
     frame_ms = {**time_pipeline(scene_848, card), **time_pipeline(scene_720, card),
                 **time_modes(scene_848, card), **time_modes(scene_720, card)}
-    kernel_ms = {**time_kernels(card), **time_prep_kernels(scene_848, card)}
+    kernel_ms = {**time_kernels(card), **time_resolve((scene_848, scene_720), card),
+                 **time_prep_kernels(scene_848, card)}
     time_prep_kernels(scene_720, card)
     tail_ms = time_color_tail(card)
-    tail_ops = {f"dual {s.w}x{s.h}": profile_color_tail(s, card) for s in (scene_848, scene_720)}
-    log(f"[6] summary color tail ms (image kernel, replaced tail) {json.dumps(tail_ms)}; device "
-        f"ops per tiled frame (before, after) {json.dumps(tail_ops)} on {card}")
+    frame_ops = {f"dual {s.w}x{s.h}": profile_frame(s, card) for s in (scene_848, scene_720)}
+    log(f"[6] summary color tail (ms, device ms) {json.dumps(tail_ms)}; device ops per tiled "
+        f"frame {json.dumps(frame_ops)} on {card}")
     log(f"[6] summary ms/frame {json.dumps(frame_ms)} on {card}")
     tick_ms = {}
     for tag, (scene, pipe, host_ms) in timed.items():

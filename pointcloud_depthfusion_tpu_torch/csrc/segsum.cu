@@ -49,11 +49,6 @@
 // these sizes, and four launches and a memset. A slot holding many entries
 // is one chain of dependent adds per channel (about 4 cycles an entry);
 // splitting it would change the bits.
-//
-// segsum_runs_launch keeps the earlier design (the caller sorts the entries
-// by slot with a stable library sort; one thread per slot finds its run by
-// binary search and walks it). No wrapper calls it: it is the yardstick
-// that chip_smoke.py times the redesign against.
 
 #include <climits>
 #include <cstdint>
@@ -423,46 +418,6 @@ reduce_runs(const int* __restrict__ keys, const int* __restrict__ idx,
   wait_copies<0>();
 }
 
-// -- the earlier design (timing yardstick) -------------------------------------
-
-constexpr int kRunThreads = 128;
-
-// First position in sorted ss[0, n) whose slot is >= s.
-__device__ int lower_bound(const int* __restrict__ ss, int n, int s) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (ss[mid] < s) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__global__ void segsum_runs(const int* __restrict__ ss, const long long* __restrict__ si,
-                            const float* __restrict__ values, int n, int c, int n_slots,
-                            float* __restrict__ sums, int* __restrict__ rep) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < n_slots; s += stride) {
-    const int begin = lower_bound(ss, n, s);
-    const int end = lower_bound(ss, n, s + 1);
-    float acc[kMaxChannels];
-#pragma unroll
-    for (int ch = 0; ch < kMaxChannels; ++ch) acc[ch] = 0.0f;
-    for (int j = begin; j < end; ++j) {
-      const float* v = values + si[j] * c;
-#pragma unroll
-      for (int ch = 0; ch < kMaxChannels; ++ch) {
-        if (ch < c) acc[ch] += v[ch];
-      }
-    }
-    float* dst = sums + static_cast<long long>(s) * c;
-#pragma unroll
-    for (int ch = 0; ch < kMaxChannels; ++ch) {
-      if (ch < c) dst[ch] = acc[ch];
-    }
-    rep[s] = begin < end ? static_cast<int>(si[begin]) : INT_MAX;
-  }
-}
-
 // Where the launch's int32 scratch goes: each radix pass's digit histogram,
 // (n_tiles, kRadix), then two (keys, indices) buffers padded to whole
 // chunks, 16-byte aligned.
@@ -541,19 +496,5 @@ extern "C" int segsum_launch(const int* slot, const float* values, int n, int c,
   const long long blocks = (warps + kReduceWarps - 1) / kReduceWarps;
   reduce_runs<<<static_cast<unsigned>(blocks), 32 * kReduceWarps, 0, st>>>(
       s.keys[cur], s.idx[cur], values, n, c, n_slots, sums, rep);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The earlier design, for timing only. ss: (n,) i32 slots sorted
-// ascending; si: (n,) i64 entry index of each sorted position (stable:
-// ascending within a slot). Outputs as segsum_launch.
-extern "C" int segsum_runs_launch(const int* ss, const long long* si, const float* values, int n,
-                                  int c, int n_slots, float* sums, int* rep, void* stream) {
-  if (n_slots > 0) {
-    long long blocks = (static_cast<long long>(n_slots) + kRunThreads - 1) / kRunThreads;
-    if (blocks > 65535) blocks = 65535;  // grid-stride beyond
-    segsum_runs<<<static_cast<int>(blocks), kRunThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        ss, si, values, n, c, n_slots, sums, rep);
-  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -105,7 +105,7 @@ def _compile(nvcc: str, srcs: List[pathlib.Path], target: pathlib.Path) -> str:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.zresolve_launch.argtypes = [p, p, p, i, p, i, p, p, p]
+    lib.zresolve_launch.argtypes = [p, p, p, p, i, i, i, p, i, p, p, p]
     lib.zresolve_launch.restype = i
     lib.scatter_min_u32_launch.argtypes = [p, p, i, p, i, p]
     lib.scatter_min_u32_launch.restype = i
@@ -119,8 +119,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.segsum_scratch_ints.restype = ctypes.c_longlong
     lib.segsum_launch.argtypes = [p, p, i, i, i, p, p, p, p]
     lib.segsum_launch.restype = i
-    lib.segsum_runs_launch.argtypes = [p, p, p, i, i, i, p, p, p]
-    lib.segsum_runs_launch.restype = i
     return lib
 
 

@@ -7,6 +7,19 @@ pixel, the entry with the smallest z bits (signed i32) wins, ties go to the
 smaller rgb (signed i32); INT32_MAX where no entry landed. Entries whose
 pixel lies outside ``[0, n_px)`` are dropped.
 
+Each call of a kernel wrapper is one launch of one kernel: the scatter of
+the entries' keys and the decode of the winners, separated by a grid-wide
+barrier, over a key buffer that the module keeps per (device, stream) and
+that every call leaves all-ones as it found it (``_key_buffer``). A launch
+that reports an error drops its buffer, so the next call starts from a
+freshly filled one.
+
+:func:`zresolve_masked` is the render's own feed: the pixel index, f32 z,
+the bool mask and rgb24 as the prep produces them, masked in the kernel; its
+result is bit for bit the JAX API's resolve of :func:`masked_entries` (the
+``torch.where`` composition it replaces). It counts under the name of the
+resolve it runs.
+
 ``zresolve_sorted_entries(legacy_feed=True)`` (the JAX package's (4, N)
 feed into its first resolve kernel, zresolve_pallas.py:417-453) computes
 the same contract, so it runs the same kernel; its launches are counted
@@ -31,6 +44,7 @@ kernel, or raises.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -118,6 +132,25 @@ def zresolve_winner_rgb_plain(
     return _lo(_resolve_plain(pix, zbits, rgb, n_px))
 
 
+def masked_entries(
+    idx: torch.Tensor, z: torch.Tensor, ok: torch.Tensor, rgb24: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The JAX API's (pix, zbits, rgb) of a masked feed: INVALID_PIX and
+    INT32_MAX where ``ok`` is off, z's f32 bits and rgb24 where it is on."""
+    return (torch.where(ok, idx, INVALID_PIX), torch.where(ok, z.view(torch.int32), INT32_MAX),
+            torch.where(ok, rgb24, INT32_MAX))
+
+
+def zresolve_masked_plain(
+    idx: torch.Tensor, z: torch.Tensor, ok: torch.Tensor, rgb24: torch.Tensor, n_px: int,
+    need_zbuf: bool,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of :func:`zresolve_masked`: :func:`masked_entries`,
+    then the plain resolve."""
+    minz, mrgb = zresolve_sorted_streams_plain(*masked_entries(idx, z, ok, rgb24), n_px)
+    return mrgb, minz if need_zbuf else None
+
+
 def scatter_min_u32_plain(idx: torch.Tensor, key: torch.Tensor, n_slots: int) -> torch.Tensor:
     """Plain version of :func:`scatter_min_u32`: ``scatter_reduce_(amin)``
     of the int64 key values into a dump-slotted buffer."""
@@ -130,50 +163,89 @@ def scatter_min_u32_plain(idx: torch.Tensor, key: torch.Tensor, n_slots: int) ->
 
 # -- kernel wrappers --------------------------------------------------------
 
+_I32 = (torch.int32, torch.int32, torch.int32)
+#: The key buffers, by (device index, stream): int64 tensors of all-ones
+#: bits between calls (see the module docstring), grown to the largest
+#: n_px seen on their stream.
+_key_buffers: dict = {}
+_key_lock = threading.Lock()
 
-def _check_entries(pix, zbits, rgb, names=("pix", "zbits", "rgb"), ndim: int = 1) -> None:
-    """Each given tensor: int32, contiguous, on pix's device, with pix's
-    shape of rank ``ndim`` ((N,) entries, or (S, N) streams)."""
-    shape, layout = tuple(pix.shape), "(N,)" if ndim == 1 else "(S, N)"
-    for name, t in zip(names, (pix, zbits, rgb)):
+
+def _check_entries(ts, names=("pix", "zbits", "rgb"), dtypes=_I32, ndim: int = 1) -> None:
+    """Each given tensor (None skipped): of its dtype, contiguous, on the
+    first one's device, with the first one's shape of rank ``ndim`` ((N,)
+    entries, or (S, N) streams)."""
+    first = ts[0]
+    shape, device = first.shape, first.device
+    if first.dim() == ndim:
+        for t, dt in zip(ts, dtypes):
+            if t is not None and (t.dtype != dt or t.shape != shape or not t.is_contiguous()
+                                  or t.device != device):
+                break
+        else:
+            return
+    layout = "(N,)" if ndim == 1 else "(S, N)"
+    for name, t, dt in zip(names, ts, dtypes):
         if t is None:
             continue
-        if t.dtype != torch.int32 or t.dim() != ndim or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {layout} int32 of {shape}, got "
+        if t.dtype != dt or t.dim() != ndim or t.shape != shape:
+            raise ValueError(f"{name}: expected {layout} {str(dt)[6:]} of {tuple(shape)}, got "
                              f"{tuple(t.shape)} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
-        if t.device != pix.device:
-            raise ValueError(f"{name}: on {t.device}, pix on {pix.device}")
+        if t.device != device:
+            raise ValueError(f"{name}: on {t.device}, {names[0]} on {device}")
 
 
-def _launch(pix, zbits, rgb, n_px: int, minz, mrgb) -> None:
-    lib = _build.load()
-    keys = torch.empty(n_px, dtype=torch.int64, device=pix.device)
-    stream = torch.cuda.current_stream(pix.device).cuda_stream
-    _build.check(
-        lib.zresolve_launch(
-            pix.data_ptr(), zbits.data_ptr(),
-            None if rgb is None else rgb.data_ptr(),
-            pix.numel(), keys.data_ptr(), n_px,
-            None if minz is None else minz.data_ptr(),
-            None if mrgb is None else mrgb.data_ptr(),
-            stream,
-        ),
-        "zresolve_launch",
-    )
+def _on_card(device: torch.device) -> bool:
+    """False for the CPU (the plain version runs), True for a card; raises
+    for any other device."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    return True
+
+
+def _key_buffer(device: torch.device, stream: int, n_px: int) -> torch.Tensor:
+    """The key buffer of (``device``, ``stream``), of at least ``n_px``
+    keys: filled with all-ones (on that stream) when it is allocated."""
+    slot = (device.index, stream)
+    with _key_lock:
+        keys = _key_buffers.get(slot)
+        if keys is None or keys.numel() < n_px:
+            keys = torch.full((max(n_px, 1),), -1, dtype=torch.int64, device=device)
+            _key_buffers[slot] = keys
+        return keys
+
+
+def _launch(pix, zbits, ok, rgb, n_px: int, minz, mrgb) -> None:
+    """One launch of the resolve on the current stream of ``pix``'s card."""
+    device = pix.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    keys = _key_buffer(device, stream, n_px)
+    status = _build.load().zresolve_launch(
+        pix.data_ptr(), zbits.data_ptr(), None if ok is None else ok.data_ptr(),
+        None if rgb is None else rgb.data_ptr(), pix.numel(), ok is not None, rgb is not None,
+        keys.data_ptr(), n_px, None if minz is None else minz.data_ptr(),
+        None if mrgb is None else mrgb.data_ptr(), stream)
+    if status:
+        # A resolve that did not run to its end may leave keys set: the next
+        # call on this stream allocates and fills a new buffer.
+        with _key_lock:
+            if _key_buffers.get((device.index, stream)) is keys:
+                del _key_buffers[(device.index, stream)]
+        _build.check(status, "zresolve_launch")
 
 
 def _sorted(pix, zbits, rgb, n_px: int, counter: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """B2 on checked entries of any layout: the plain version on the CPU,
     else one launch counted under ``counter``."""
-    if pix.device.type == "cpu":
+    if not _on_card(pix.device):
         return zresolve_sorted_streams_plain(pix, zbits, rgb, n_px)
-    if pix.device.type != "cuda":
-        raise ValueError(f"unsupported device {pix.device}")
     minz = torch.empty(n_px, dtype=torch.int32, device=pix.device)
     mrgb = None if rgb is None else torch.empty_like(minz)
-    _launch(pix, zbits, rgb, n_px, minz, mrgb)
+    _launch(pix, zbits, None, rgb, n_px, minz, mrgb)
     launches[counter] += 1
     return (minz, minz) if rgb is None else (minz, mrgb)
 
@@ -183,10 +255,11 @@ def zresolve_sorted_entries(
     legacy_feed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel (min z bits, rgb of the winner), both (n_px,) int32 and
-    INT32_MAX where empty. ``rgb=None`` resolves depth alone and returns
-    the min z bits twice. ``legacy_feed`` gives the same result through
-    the same kernel and counts under ``zresolve_sorted_entries_legacy``."""
-    _check_entries(pix, zbits, rgb)
+    INT32_MAX where empty. ``rgb=None`` resolves depth alone (32-bit keys)
+    and returns the min z bits twice. ``legacy_feed`` gives the same result
+    through the same kernel and counts under
+    ``zresolve_sorted_entries_legacy``."""
+    _check_entries((pix, zbits, rgb))
     return _sorted(pix, zbits, rgb, n_px, "zresolve_sorted_entries_legacy" if legacy_feed
                    else "zresolve_sorted_entries")
 
@@ -200,7 +273,7 @@ def zresolve_sorted_streams(
     ``tile_px`` and ``chunk`` (the TPU kernel's tiling) are accepted and
     unused."""
     del tile_px, chunk
-    _check_entries(pix, zbits, rgb, ndim=2)
+    _check_entries((pix, zbits, rgb), ndim=2)
     return _sorted(pix, zbits, rgb, n_px, "zresolve_sorted_streams")
 
 
@@ -211,15 +284,46 @@ def zresolve_winner_rgb(
     empty."""
     if rgb is None:
         raise ValueError("zresolve_winner_rgb needs rgb")
-    _check_entries(pix, zbits, rgb)
-    if pix.device.type == "cpu":
+    _check_entries((pix, zbits, rgb))
+    if not _on_card(pix.device):
         return zresolve_winner_rgb_plain(pix, zbits, rgb, n_px)
-    if pix.device.type != "cuda":
-        raise ValueError(f"unsupported device {pix.device}")
     mrgb = torch.empty(n_px, dtype=torch.int32, device=pix.device)
-    _launch(pix, zbits, rgb, n_px, None, mrgb)
+    _launch(pix, zbits, None, rgb, n_px, None, mrgb)
     launches["zresolve_winner_rgb"] += 1
     return mrgb
+
+
+_MASKED = ("idx", "z", "ok", "rgb24")
+_MASKED_DTYPES = (torch.int32, torch.float32, torch.bool, torch.int32)
+
+
+def zresolve_masked(
+    idx: torch.Tensor, z: torch.Tensor, ok: torch.Tensor, rgb24: torch.Tensor, n_px: int,
+    need_zbuf: bool,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The resolve of the render's own entries, masked in the kernel: per
+    pixel of ``[0, n_px)``, the winner among the entries whose ``ok`` is set
+    and whose ``idx`` lies inside. ``idx`` int32, ``z`` float32 (compared
+    by its bits, as signed int32), ``ok`` bool and ``rgb24`` int32, all of
+    one shape: (N,) entries, or (S, N) streams (kernel B7). Returns (rgb of
+    the winner, min z bits or None unless ``need_zbuf``), (n_px,) int32 and
+    INT32_MAX where empty: bit for bit the JAX API's resolve of
+    :func:`masked_entries`. Counts under ``zresolve_sorted_streams`` for
+    streams, else ``zresolve_sorted_entries`` with the z-buffer and
+    ``zresolve_winner_rgb`` without it. Takes each dtype as it is and
+    refuses any other."""
+    if rgb24 is None:
+        raise ValueError("zresolve_masked needs rgb24")
+    _check_entries((idx, z, ok, rgb24), _MASKED, _MASKED_DTYPES,
+                   ndim=2 if idx.dim() == 2 else 1)
+    if not _on_card(idx.device):
+        return zresolve_masked_plain(idx, z, ok, rgb24, n_px, need_zbuf)
+    mrgb = torch.empty(n_px, dtype=torch.int32, device=idx.device)
+    minz = torch.empty_like(mrgb) if need_zbuf else None
+    _launch(idx, z, ok, rgb24, n_px, minz, mrgb)
+    launches["zresolve_sorted_streams" if idx.dim() == 2 else
+             "zresolve_sorted_entries" if need_zbuf else "zresolve_winner_rgb"] += 1
+    return mrgb, minz
 
 
 def scatter_min_u32(idx: torch.Tensor, key: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -227,11 +331,9 @@ def scatter_min_u32(idx: torch.Tensor, key: torch.Tensor, n_slots: int) -> torch
     0xFFFFFFFF (-1) where no entry landed. ``idx`` and ``key`` are (N,)
     int32; an entry whose slot lies outside ``[0, n_slots)`` (the dump slot
     ``n_slots`` among them) is dropped."""
-    _check_entries(idx, key, None, ("idx", "key", ""))
-    if idx.device.type == "cpu":
+    _check_entries((idx, key), ("idx", "key"))
+    if not _on_card(idx.device):
         return scatter_min_u32_plain(idx, key, n_slots)
-    if idx.device.type != "cuda":
-        raise ValueError(f"unsupported device {idx.device}")
     out = torch.empty(n_slots, dtype=torch.int32, device=idx.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(idx.device).cuda_stream

@@ -5,7 +5,8 @@ pointcloud_depthfusion_tpu/ops/render.py, every render mode.
   f32 depth wins, ties go to the smaller packed RGB; the image carries the
   winner's exact RGB888 and the z-buffer its exact f32 depth (FLT_MAX where
   empty). Both run the resolve as kernel B1 (image only) or B2 (image and
-  z-buffer), ops/cuda/zresolve_cuda.py.
+  z-buffer), ops/cuda/zresolve_cuda.py, on its masked feed: the kernel
+  drops the points the projection rejects.
 - ``packed``: one scatter-min of ``zq14 << 18 | RGB666`` keys, decoded by
   :func:`_decode_packed_planes` alone.
 - ``indexed``: one scatter-min of ``zq << idx_bits | point_index`` keys,
@@ -33,7 +34,6 @@ from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda, zresolve_cud
 from pointcloud_depthfusion_tpu_torch.ops.cuda.filters_cuda import decode_winner_planes
 from pointcloud_depthfusion_tpu_torch.ops.cuda.zresolve_cuda import (
     INT32_MAX,
-    INVALID_PIX,
     U32_EMPTY,
     u32_bits,
     u32_value,
@@ -120,16 +120,11 @@ def unpack_rgb(packed: torch.Tensor) -> torch.Tensor:
 
 def _resolve_exact(idx, zc, ok, rgb24, n_px: int, need_zbuf: bool):
     """Exact winners of flat entries: (packed winner rgb, min z bits or
-    None), INT32_MAX where no entry landed. Dropped entries carry
-    INVALID_PIX and MAX fields."""
-    okf = ok.reshape(-1)
-    pix = torch.where(okf, idx.reshape(-1), INVALID_PIX)
-    zbits = torch.where(okf, zc.to(torch.float32).reshape(-1).view(torch.int32), INT32_MAX)
-    rgb = torch.where(okf, rgb24.to(torch.int32).reshape(-1), INT32_MAX)
-    if need_zbuf:
-        minz, mrgb = zresolve_cuda.zresolve_sorted_entries(pix, zbits, rgb, n_px)
-        return mrgb, minz
-    return zresolve_cuda.zresolve_winner_rgb(pix, zbits, rgb, n_px), None
+    None), INT32_MAX where no entry landed. The kernel drops the entries
+    whose ``ok`` is off (the masked feed)."""
+    return zresolve_cuda.zresolve_masked(
+        idx.reshape(-1), zc.to(torch.float32).reshape(-1).contiguous(), ok.reshape(-1),
+        rgb24.to(torch.int32).reshape(-1).contiguous(), n_px, need_zbuf)
 
 
 def _zbuf(minz, h: int, w: int) -> torch.Tensor:

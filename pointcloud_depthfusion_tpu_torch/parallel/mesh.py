@@ -4,7 +4,8 @@ pointcloud_depthfusion_tpu/parallel/mesh.py.
 Every camera of the rig contributes (pixel, z bits, rgb24) entries to one
 fused virtual image; the per-pixel winner is the smallest f32 depth, ties
 going to the smaller packed RGB, as in the dual fused frame. The resolve
-runs on the z-buffer kernels of ops/cuda/zresolve_cuda.py:
+runs on the z-buffer kernels of ops/cuda/zresolve_cuda.py, fed the batched
+prep's masked feed (``feed_all``):
 
 - ``tiled`` (or ``exact``), image only: kernel B1;
 - ``tiled`` with the z-buffer: kernel B2;
@@ -247,7 +248,8 @@ def _tiled_rig_body(calib: _RigCalibration, fused_intrinsics: Intrinsics,
                     config: FusionConfig):
     """The bit-exact rig body: every camera contributes (pixel, z bits,
     rgb24) entries and one resolve kernel picks the winners. Returns
-    (entries_one, entries_all, local_minbufs, unpack, local_winner_rgb)."""
+    (entries_one, entries_all, local_minbufs, unpack, local_winner_rgb,
+    feed_all)."""
     n_px = fused_intrinsics.width * fused_intrinsics.height
 
     def entries_one(depth1, color1, scale1, t1, pix_offset=0, intr1=None, roi1=None):
@@ -268,10 +270,11 @@ def _tiled_rig_body(calib: _RigCalibration, fused_intrinsics: Intrinsics,
         rgb = torch.where(okf, _rgb24_of(color1, depth1.dim()).reshape(-1), INT32_MAX)
         return pix, zbits, rgb
 
-    def entries_all(depth, color, depth_scale, cam_to_virtual, pix_offsets=None,
-                    per_stream=False):
-        """All N cameras' entries from one batched (N, H, W) chain: the
-        shared pixel grid broadcasts against per-camera (N, 1, 1) windows.
+    def feed_all(depth, color, depth_scale, cam_to_virtual, pix_offsets=None,
+                 per_stream=False):
+        """All N cameras' masked feed (idx int32, z f32, ok bool, rgb24
+        int32) from one batched (N, H, W) chain: the shared pixel grid
+        broadcasts against per-camera (N, 1, 1) windows.
 
         ``pix_offsets``: optional (N,) int32 per-camera pixel offsets (the
         batched rig routes each stream into its own slice this way).
@@ -310,34 +313,37 @@ def _tiled_rig_body(calib: _RigCalibration, fused_intrinsics: Intrinsics,
         if pix_offsets is not None:
             idx = idx + pix_offsets.to(torch.int32)[:, None, None]
         shape = (n_local, -1) if per_stream else (-1,)
-        okf = ok.reshape(shape)
-        pix = torch.where(okf, idx.reshape(shape), INVALID_PIX).to(torch.int32)
-        zbits = torch.where(okf, zc.to(f).view(torch.int32).reshape(shape), INT32_MAX)
-        rgb = torch.where(okf, _rgb24_of(color, depth.dim()).reshape(shape), INT32_MAX)
-        return pix, zbits, rgb
+        return (idx.reshape(shape), zc.to(f).reshape(shape), ok.reshape(shape),
+                _rgb24_of(color, depth.dim()).reshape(shape).contiguous())
+
+    def entries_all(depth, color, depth_scale, cam_to_virtual, pix_offsets=None,
+                    per_stream=False):
+        """The JAX API's (pix, zbits, rgb) entries of :func:`feed_all`'s
+        masked feed (INVALID_PIX and INT32_MAX where a point is dropped)."""
+        return Z.masked_entries(*feed_all(depth, color, depth_scale, cam_to_virtual,
+                                          pix_offsets, per_stream))
 
     def local_minbufs(depth, color, depth_scale, cam_to_virtual, multi_stream=False):
         """(min z bits, rgb of the winner) per fused pixel: B7 on the
         per-camera streams with ``multi_stream`` and two or more cameras,
-        else B2 on the flat entries."""
-        if multi_stream and depth.shape[0] >= 2:
-            pix, zbits, rgb = entries_all(depth, color, depth_scale, cam_to_virtual,
-                                          per_stream=True)
-            return Z.zresolve_sorted_streams(pix, zbits, rgb, n_px)
-        pix, zbits, rgb = entries_all(depth, color, depth_scale, cam_to_virtual)
-        return Z.zresolve_sorted_entries(pix, zbits, rgb, n_px)
+        else B2 on the flat feed; the kernel masks the entries."""
+        per_stream = multi_stream and depth.shape[0] >= 2
+        mrgb, minz = Z.zresolve_masked(
+            *feed_all(depth, color, depth_scale, cam_to_virtual, per_stream=per_stream),
+            n_px, True)
+        return minz, mrgb
 
     def local_winner_rgb(depth, color, depth_scale, cam_to_virtual):
         """Image-only resolve (B1): the winner's rgb per fused pixel."""
-        pix, zbits, rgb = entries_all(depth, color, depth_scale, cam_to_virtual)
-        return Z.zresolve_winner_rgb(pix, zbits, rgb, n_px)
+        return Z.zresolve_masked(*feed_all(depth, color, depth_scale, cam_to_virtual),
+                                 n_px, False)[0]
 
     def unpack(mrgb):
         # The winner's rgb alone marks coverage: a covered rgb24 is below
         # INT32_MAX, the resolve's empty value, with or without the z-buffer.
         return _finish_winner(mrgb, config, fused_intrinsics.height, fused_intrinsics.width)
 
-    return entries_one, entries_all, local_minbufs, unpack, local_winner_rgb
+    return entries_one, entries_all, local_minbufs, unpack, local_winner_rgb, feed_all
 
 
 def _on_device(intrinsics, fused_intrinsics, config, rois, device):
@@ -386,7 +392,7 @@ def rig_fuse(
             )
 
     if _rig_render_mode(config) == "tiled":
-        _, _, local_minbufs, unpack_t, local_winner = _tiled_rig_body(calib, fused, config)
+        _, _, local_minbufs, unpack_t, local_winner, _ = _tiled_rig_body(calib, fused, config)
 
         if not config.emit_zbuf and not multi_stream:
             def fn(depth, color, depth_scale, cam_to_virtual):
@@ -449,7 +455,7 @@ def batched_rig_fuse(
     total_px = batch * n_px
 
     if _rig_render_mode(config) == "tiled":
-        _, entries_all, _, _, _ = _tiled_rig_body(calib, fused, config)
+        feed_all = _tiled_rig_body(calib, fused, config)[5]
         stream_offsets = torch.repeat_interleave(
             torch.arange(batch, dtype=torch.int32, device=device) * n_px, cameras)
 
@@ -458,9 +464,9 @@ def batched_rig_fuse(
             n = batch * cameras
             color_flat = (color.reshape(n, h, w) if color.dim() == depth.dim()
                           else color.reshape(n, h, w, 3))
-            p, z, rr = entries_all(depth.reshape(n, h, w), color_flat, depth_scale.reshape(-1),
-                                   cam_to_virtual.reshape(n, 4, 4), pix_offsets=stream_offsets)
-            _, mrgb = Z.zresolve_sorted_entries(p, z, rr, total_px)
+            feed = feed_all(depth.reshape(n, h, w), color_flat, depth_scale.reshape(-1),
+                            cam_to_virtual.reshape(n, 4, 4), pix_offsets=stream_offsets)
+            mrgb, _ = Z.zresolve_masked(*feed, total_px, True)
             return _finish_winner(mrgb.reshape(batch, n_px), config, h_f, w_f)
     else:
         project_one, _, _ = _packed_rig_body(calib, fused, config, z_near, z_far)

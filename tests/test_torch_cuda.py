@@ -35,7 +35,7 @@ def _entries(n, n_px, seed, device):
     return (torch.from_numpy(a).to(device) for a in (pix, z, rgb))
 
 
-@pytest.mark.parametrize("n,n_px", [(0, 5), (1, 1), (1000, 257), (70_001, 3000)])
+@pytest.mark.parametrize("n,n_px", [(0, 5), (1, 1), (1000, 257), (70_001, 3000), (100_000, 64)])
 def test_resolve_kernel_matches_plain(cuda, n, n_px):
     pix, z, rgb = _entries(n, n_px, n + n_px, cuda)
     before = dict(Z.launches)
@@ -50,6 +50,170 @@ def test_resolve_kernel_matches_plain(cuda, n, n_px):
     assert Z.launches["zresolve_sorted_entries"] == before["zresolve_sorted_entries"] + 2
     assert Z.launches["zresolve_sorted_entries_legacy"] == before["zresolve_sorted_entries_legacy"] + 2
     assert Z.launches["zresolve_winner_rgb"] == before["zresolve_winner_rgb"] + 1
+
+
+def _feed(n, n_px, seed, device, mask="random"):
+    """A masked feed (idx, z f32, ok, rgb24): pixel ids inside and outside
+    [0, n_px), z from a few values (ties), ``ok`` random, all off or all on."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-2, n_px + 3, n).astype(np.int32)
+    z = (rng.integers(-3, 4, n).astype(np.int32) << 23).view(np.float32)
+    rgb = rng.integers(0, 1 << 24, n).astype(np.int32)
+    ok = {"random": rng.random(n) < 0.8, "all_off": np.zeros(n, bool),
+          "all_on": np.ones(n, bool)}[mask]
+    return tuple(torch.from_numpy(a).to(device) for a in (idx, z, ok, rgb))
+
+
+def _resolve_all(pix, z, rgb, n_px):
+    """Every JAX API resolve of the entries, flattened to a list."""
+    return [*Z.zresolve_sorted_entries(pix, z, rgb, n_px),
+            *Z.zresolve_sorted_entries(pix, z, None, n_px),
+            Z.zresolve_winner_rgb(pix, z, rgb, n_px)]
+
+
+def _plain_all(pix, z, rgb, n_px):
+    return [*Z.zresolve_sorted_entries_plain(pix, z, rgb, n_px),
+            *Z.zresolve_sorted_entries_plain(pix, z, None, n_px),
+            Z.zresolve_winner_rgb_plain(pix, z, rgb, n_px)]
+
+
+def _keys_clean():
+    torch.cuda.synchronize()
+    return all(bool((k == -1).all()) for k in Z._key_buffers.values())
+
+
+def test_resolve_of_invalid_entries_is_empty(cuda):
+    pix, z, rgb = _entries(5000, 700, 1, cuda)
+    pix = torch.full_like(pix, Z.INVALID_PIX)
+    got = _resolve_all(pix, z, rgb, 700)
+    assert all(bool((g == Z.INT32_MAX).all()) for g in got)
+    assert _keys_clean()
+
+
+@pytest.mark.parametrize("mask", ["random", "all_off", "all_on"])
+@pytest.mark.parametrize("n,n_px", [(0, 5), (1, 1), (1000, 257), (70_001, 3000), (100_000, 64)])
+def test_masked_resolve_matches_plain(cuda, n, n_px, mask):
+    """The masked feed: bit for bit its plain version and the JAX API's
+    resolve of the masked entries, in the 16 B loads' layout and in an
+    unaligned view (the scalar loop)."""
+    idx, z, ok, rgb = _feed(n + 1, n_px, n + n_px, cuda, mask)
+    for sl in (slice(0, n), slice(1, n + 1)):
+        feed = tuple(t[sl] for t in (idx, z, ok, rgb))
+        for need_zbuf in (True, False):
+            got = Z.zresolve_masked(*feed, n_px, need_zbuf)
+            want = Z.zresolve_masked_plain(*feed, n_px, need_zbuf)
+            assert torch.equal(got[0], want[0]) and (got[1] is None) == (not need_zbuf)
+            assert not need_zbuf or torch.equal(got[1], want[1])
+            minz, mrgb = Z.zresolve_sorted_entries(*Z.masked_entries(*feed), n_px)
+            assert torch.equal(got[0], mrgb) and (not need_zbuf or torch.equal(got[1], minz))
+    assert _keys_clean()
+
+
+def test_key_buffer_grows_shrinks_and_stays_clean(cuda):
+    """One stream's key buffer through growing, shrinking and growing
+    n_px, each call with other entries equal to its own plain result, and
+    all-ones after every call."""
+    for k, n_px in enumerate((100, 50_000, 7, 200_000, 1, 3000, 400_000)):
+        pix, z, rgb = _entries(2 * n_px + 5, n_px, 40 + k, cuda)
+        got, want = _resolve_all(pix, z, rgb, n_px), _plain_all(pix, z, rgb, n_px)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), n_px
+        feed = _feed(2 * n_px + 5, n_px, 80 + k, cuda)
+        assert torch.equal(Z.zresolve_masked(*feed, n_px, True)[1],
+                           Z.zresolve_masked_plain(*feed, n_px, True)[1])
+        assert _keys_clean(), n_px
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert Z._key_buffers[(cuda.index if cuda.index is not None else torch.cuda.current_device(),
+                           stream)].numel() >= 400_000
+
+
+def test_two_side_streams_resolve_at_once(cuda):
+    """Two side streams, each with its own key buffer, resolving in turns
+    without waiting for each other: each result is its own plain one."""
+    inputs = [tuple(_entries(300_000, 100_000, 60 + i, cuda)) for i in range(2)]
+    wants = [_plain_all(*e, 100_000) for e in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    gots = [[], []]
+    for _ in range(4):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                gots[i].append(_resolve_all(*inputs[i], 100_000))
+    torch.cuda.synchronize()
+    for got, want in zip(gots, wants):
+        for g in got:
+            assert all(torch.equal(a, b) for a, b in zip(g, want))
+    assert {(torch.cuda.current_device(), s.cuda_stream) for s in streams} <= set(Z._key_buffers)
+    assert _keys_clean()
+
+
+def test_failed_launch_drops_the_key_buffer(cuda, monkeypatch):
+    """A launch that reports an error raises and drops its stream's key
+    buffer, so the next call starts from a fresh one and is right: here the
+    failed launch leaves the old buffer dirty (all zeros)."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import _build
+
+    pix, z, rgb = _entries(20_000, 5000, 7, cuda)
+    Z.zresolve_winner_rgb(pix, z, rgb, 5000)
+    slot = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    dirty = Z._key_buffers[slot]
+    lib = _build.load()
+    real = lib.zresolve_launch
+    calls = []
+
+    def fail_once(*args):
+        calls.append(args)
+        if len(calls) == 1:
+            dirty.zero_()
+            return 700  # cudaErrorIllegalAddress
+        return real(*args)
+
+    monkeypatch.setattr(lib, "zresolve_launch", fail_once)
+    before = dict(Z.launches)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        Z.zresolve_winner_rgb(pix, z, rgb, 5000)
+    assert slot not in Z._key_buffers and Z.launches == before
+    got = Z.zresolve_sorted_entries(pix, z, rgb, 5000)
+    assert all(torch.equal(a, b) for a, b in zip(got, Z.zresolve_sorted_entries_plain(
+        pix, z, rgb, 5000)))
+    assert Z._key_buffers[slot] is not dirty and len(calls) == 2
+    assert _keys_clean()
+
+
+def test_each_resolve_call_is_one_device_op(cuda):
+    """Every resolve wrapper runs one kernel on the card a call (no fill, no
+    scratch allocation), counted by torch.profiler, and counts one launch
+    under its name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pix, z, rgb = _entries(40_000, 10_000, 3, cuda)
+    idx, zf, ok, rgb24 = _feed(40_000, 10_000, 4, cuda)
+    s2 = tuple(t.reshape(4, -1) for t in (pix, z, rgb))
+    f2 = tuple(t.reshape(4, -1) for t in (idx, zf, ok, rgb24))
+    calls = {
+        "zresolve_sorted_entries": lambda: Z.zresolve_sorted_entries(pix, z, rgb, 10_000),
+        "zresolve_sorted_entries_legacy": lambda: Z.zresolve_sorted_entries(
+            pix, z, rgb, 10_000, legacy_feed=True),
+        "zresolve_winner_rgb": lambda: Z.zresolve_winner_rgb(pix, z, rgb, 10_000),
+        "zresolve_sorted_streams": lambda: Z.zresolve_sorted_streams(*s2, 10_000),
+    }
+    masked = {
+        "zresolve_sorted_entries": lambda: Z.zresolve_masked(idx, zf, ok, rgb24, 10_000, True),
+        "zresolve_winner_rgb": lambda: Z.zresolve_masked(idx, zf, ok, rgb24, 10_000, False),
+        "zresolve_sorted_streams": lambda: Z.zresolve_masked(*f2, 10_000, True),
+    }
+    depth_only = {"zresolve_sorted_entries": lambda: Z.zresolve_sorted_entries(
+        pix, z, None, 10_000)}
+    for group in (calls, masked, depth_only):
+        for name, fn in group.items():
+            fn()
+            torch.cuda.synchronize()
+            before = dict(Z.launches)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            ops = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+            assert len(ops) == 1, (name, [e.name for e in ops])
+            assert Z.launches == {**before, name: before[name] + 1}, name
 
 
 @pytest.mark.parametrize("h,w", [(0, 5), (1, 1), (2, 5), (3, 3), (3, 4), (7, 129), (131, 33)])

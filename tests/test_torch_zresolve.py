@@ -60,6 +60,13 @@ def test_sorted_entries_plain_bit_exact(case):
     np.testing.assert_array_equal(got_z.numpy(), np.asarray(want_z))
     np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
     assert (got_z.numpy() == MAXI).any() and (got_z.numpy() != MAXI).any()
+    # The same entries as a masked feed: ok off on the invalid ones, which
+    # carry pixel ids inside the image there.
+    ok = pix != Z.INVALID_PIX
+    idx = np.where(ok, pix, np.arange(n, dtype=np.int32) % n_px)
+    feed = (_t(idx), _t(z.view(np.float32)), _t(ok), _t(rgb))
+    m_r, m_z = Z.zresolve_masked(*feed, n_px, True)
+    assert torch.equal(m_z, got_z) and torch.equal(m_r, got_r)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -96,6 +103,44 @@ def test_winner_rgb_plain_bit_exact(case):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(got.numpy(), Z.zresolve_winner_rgb_plain(
         _t(pix), _t(z), _t(rgb), n_px).numpy())
+
+
+def _masked_feed(seed, n, n_px, z_range, negative_z, mask):
+    """A masked feed (idx, z bits, ok, rgb24) and, beside it, the JAX API's
+    entries it stands for (INVALID_PIX and MAX where ``ok`` is off). The
+    entries that ``ok`` drops carry pixel ids inside the image, so a mask
+    that went unread would show."""
+    rng = np.random.default_rng(seed + 1000)
+    idx = rng.integers(0, n_px - n_px // 5, n).astype(np.int32)
+    idx[rng.random(n) < 0.02] = -1
+    z = rng.integers(-z_range if negative_z else 1, z_range, n).astype(np.int32)
+    rgb = rng.integers(0, 1 << 24, n).astype(np.int32)
+    ok = np.full(n, mask == "all_on")
+    entries = (np.where(ok, idx, Z.INVALID_PIX).astype(np.int32), np.where(ok, z, MAXI),
+               np.where(ok, rgb, MAXI))
+    return (idx, z, ok, rgb), entries
+
+
+@pytest.mark.parametrize("mask", ["all_off", "all_on"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_masked_feed_plain_bit_exact(case, mask):
+    """The masked feed (the render's own entries, masked in the kernel) on
+    the CPU with every entry off and every entry on: bit for bit the JAX
+    package's resolve of the masked entries, and the unmasked plain
+    version's. (A mixed mask: test_sorted_entries_plain_bit_exact.)"""
+    seed, n, n_px, zr, neg = CASES[case]
+    (idx, z, ok, rgb), entries = _masked_feed(seed, n, n_px, zr, neg, mask)
+    want_z, want_r = jax_sorted_entries(*(jnp.asarray(a) for a in entries), n_px, **JAX_KW)
+    feed = (_t(idx), _t(z.view(np.float32)), _t(ok), _t(rgb))
+    got_r, got_z = Z.zresolve_masked(*feed, n_px, True)
+    np.testing.assert_array_equal(got_z.numpy(), np.asarray(want_z))
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+    image_only, none = Z.zresolve_masked(*feed, n_px, False)
+    assert none is None and torch.equal(image_only, got_r)
+    plain = Z.zresolve_sorted_entries_plain(*(_t(a) for a in entries), n_px)
+    assert torch.equal(plain[0], got_z) and torch.equal(plain[1], got_r)
+    assert all(torch.equal(a, _t(b)) for a, b in zip(Z.masked_entries(*feed), entries))
+    assert (got_r.numpy() == MAXI).all() == (mask == "all_off")
 
 
 STREAM_CASES = {
@@ -147,6 +192,9 @@ def test_cpu_wrappers_use_plain_and_count_no_launch():
     Z.zresolve_sorted_entries(_t(pix), _t(z), _t(rgb), 100, legacy_feed=True)
     Z.zresolve_sorted_streams(_t(pix).reshape(3, 200), _t(z).reshape(3, 200),
                               _t(rgb).reshape(3, 200), 100)
+    feed = (_t(pix), _t(z).view(torch.float32), _t(pix) >= 0, _t(rgb))
+    Z.zresolve_masked(*feed, 100, True)
+    Z.zresolve_masked(*(t.reshape(3, 200) for t in feed), 100, False)
     assert Z.launches == before
 
 
@@ -168,3 +216,31 @@ def test_wrappers_reject_bad_inputs():
         Z.zresolve_sorted_streams(streams, streams, streams[:1], 8)
     with pytest.raises(ValueError, match="contiguous"):
         Z.zresolve_sorted_streams(streams, streams.t().contiguous().t(), None, 8)
+
+
+def test_masked_feed_rejects_what_it_does_not_take():
+    """The masked feed takes idx int32, z float32, ok bool and rgb24 int32
+    of one shape, contiguous, on one device, and converts none of them."""
+    idx, rgb = torch.zeros(6, dtype=torch.int32), torch.zeros(6, dtype=torch.int32)
+    z, ok = torch.zeros(6), torch.ones(6, dtype=torch.bool)
+    cases = [
+        ((idx.long(), z, ok, rgb), r"idx: expected \(N,\) int32"),
+        ((idx, z.view(torch.int32), ok, rgb), r"z: expected \(N,\) float32"),
+        ((idx, z.double(), ok, rgb), r"z: expected \(N,\) float32"),
+        ((idx, z, ok.to(torch.uint8), rgb), r"ok: expected \(N,\) bool"),
+        ((idx, z, ok, rgb[:5]), r"rgb24: expected \(N,\) int32 of \(6,\)"),
+        ((idx, z, ok, torch.zeros(12, dtype=torch.int32)[::2]), "contiguous"),
+        ((idx.reshape(1, 2, 3), z.reshape(1, 2, 3), ok.reshape(1, 2, 3), rgb.reshape(1, 2, 3)),
+         r"\(N,\)"),
+        ((idx.reshape(2, 3), z, ok, rgb), r"z: expected \(S, N\) float32 of \(2, 3\)"),
+    ]
+    for args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            Z.zresolve_masked(*args, 8, True)
+    with pytest.raises(ValueError, match="needs rgb24"):
+        Z.zresolve_masked(idx, z, ok, None, 8, True)
+    meta = [t.to("meta") for t in (idx, z, ok, rgb)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        Z.zresolve_masked(*meta, 8, False)
+    with pytest.raises(ValueError, match="on meta"):
+        Z.zresolve_masked(idx, z, ok, rgb.to("meta"), 8, False)
