@@ -10,8 +10,12 @@ them the z-resolve (phase 2: B1/B2, their masked feed and the depth-only
 resolve on synthetic entries, on the real entries of a warm ``tiled`` frame
 at both sizes, on 100,000 entries over 64 pixels and through growing and
 shrinking n_px on one persistent key buffer), B4's image kernel (the fused
-frame's whole color tail in one launch, phase 3) and B5 (phase 7). Then it
-drives the two services
+frame's whole color tail in one launch, phase 3), B3 and the u32
+scatter-min (phase 10: B3's masked feed and packed keys for every camera of
+a frame in one launch, at both dual sizes and on the 8-camera rig, with
+undistorting intrinsics and ROIs; the scatter-min in every variant, through
+growing and shrinking n_slots on the same persistent buffer) and B5 (phase
+7). Then it drives the two services
 the shipped deployment runs, each against the same pipeline on the CPU at
 dual 848×480 and dual 1280×720, with every launch counter set to 0 just
 before and read just after:
@@ -35,10 +39,11 @@ before and read just after:
         ``FusionNodeApp.run`` over prerendered frames, timed.
 
 It times frames, ticks and kernels with CUDA events and a host clock ending
-in ``synchronize()`` (the resolve also by the profiler's device time and by
-its bare launch), profiles one warm tick and warm frames, and fails a
-profiled frame whose device ops exceed FRAME_OPS_CEILING. Any failure raises
-and exits non-zero; there is no result without a CUDA device.
+in ``synchronize()`` (the resolve, B3 and the scatter-min also by the
+profiler's device time and by their bare launches), profiles one warm tick
+and warm frames, and fails a profiled frame whose device ops exceed
+FRAME_OPS_CEILING. Any failure raises and exits non-zero; there is no
+result without a CUDA device.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels with their launches, errors and times.
@@ -54,6 +59,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -147,10 +153,12 @@ RIG_BATCHED = ((8, 848, 480), 2)  # the rig whose cameras make B streams, and B
 RIG_STREAMS_TIMED = (8, 848, 480)  # B7 is timed on this rig's entries
 RIG_PROFILED = ((8, 848, 480, "tiled_image_only"), (4, 848, 480, "packed"))
 # Device ops of a profiled warm frame: the dual tiled frame (image only,
-# Gauss tail) at both sizes and the rig's unfiltered 8×848×480 tiled frame.
-# Each is the count the one-launch resolve and the masked feed measured
-# (PERF.md §5); a frame above its ceiling fails the run.
-FRAME_OPS_CEILING = {"dual": 125, "rig tiled_image_only": 77}
+# Gauss tail), pallas and packed frames at both sizes, and the rig's
+# unfiltered 8×848×480 tiled and 4×848×480 packed frames. Each is the count
+# that B3's one launch for all cameras and the one-launch scatter-min
+# measured (PERF.md §5); a frame above its ceiling fails the run.
+FRAME_OPS_CEILING = {"dual": 3, "dual pallas": 3, "dual packed": 3, "rig tiled_image_only": 3,
+                     "rig packed": 3}
 B7_SHAPES = ((8, 407_040), (4, 921_600))  # (S, N = n_px)
 # The node: RigFusionNodeApp.run on RIG_CAMERAS synthetic cameras, inline
 # sweeps every NODE_EVERY frames, on the card and on the CPU, at each size
@@ -191,6 +199,77 @@ IMAGE_SIZES = ((848, 480), (480, 848), (1280, 720), (720, 1280), (13, 7), (7, 12
                (2, 5), (5, 2), (1, 1))
 IMAGE_MODES = {None: "color_image", "gauss": "gauss3x3_image", "median": "median3x3_image"}
 REPO = os.path.dirname(os.path.abspath(__file__))
+# torch.profiler: traces of one call (or one loop of calls) whose device
+# events may come back incomplete, and the margin slept inside each traced
+# window on either side of the call. Past the first minute of a run,
+# traces came back with none or only some of the kernels (10 of 20, 0 of
+# 3) for seconds at a time, while the host's records of the launches came
+# back whole; margins of up to 1 s did not bring them back. A trace counts
+# as complete when it holds one kernel for each kernel launch the host
+# made; an incomplete one is taken again, each retry doubling the margin,
+# up to PROFILE_MARGIN_MAX_S, and so the wait.
+PROFILE_TRIES = 10
+PROFILE_MARGIN_S = 0.02
+PROFILE_MARGIN_MAX_S = 1.0
+# The CUDA runtime calls that launch a kernel, and those that copy or fill
+# (the port's kernels and PyTorch's go through the runtime).
+LAUNCH_CALL = re.compile(r"^cudaLaunch(Cooperative)?Kernel\w*$")
+COPY_CALL = re.compile(r"^cudaMem(cpy|set)\w*$")
+
+
+def profile_margin(tries: int) -> float:
+    """Seconds slept on either side of the call in trace ``tries`` (1 on)."""
+    return min(PROFILE_MARGIN_S * 2 ** (tries - 1), PROFILE_MARGIN_MAX_S)
+
+
+def kernel_name(event) -> str:
+    """"void (anonymous namespace)::place<true>(int const*, ...)" → "place"."""
+    match = re.search(r"::([A-Za-z_]\w*)[<(]", event.name)
+    return match.group(1) if match else event.name[:32]
+
+
+@dataclasses.dataclass
+class Trace:
+    """One traced call: its profile, wall ms (ending in synchronize()),
+    device events, and the host's kernel launches and copy or fill calls."""
+    prof: object
+    wall: float
+    device: list
+    launches: int
+    copy_calls: int
+
+    @property
+    def kernels(self) -> int:
+        return sum(1 for e in self.device if not e.name.startswith(("Memcpy", "Memset")))
+
+    @property
+    def complete(self) -> bool:
+        # A rehearsal on the CPU (DEVICE "cpu") has no device to trace.
+        return DEVICE != "cuda" or self.kernels == self.launches > 0
+
+    def counts(self) -> str:
+        return (f"{self.kernels} kernels for {self.launches} launches, "
+                f"{len(self.device) - self.kernels} copies or fills for {self.copy_calls} calls")
+
+
+def traced(fn, tries: int) -> Trace:
+    """``fn()`` under torch.profiler, host and device, with
+    ``profile_margin(tries)`` slept on either side."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(profile_margin(tries))
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(profile_margin(tries))
+    events = prof.events()
+    host = [e.name for e in events if not str(e.device_type).endswith("CUDA")]
+    return Trace(prof, wall, [e for e in events if str(e.device_type).endswith("CUDA")],
+                 sum(1 for n in host if LAUNCH_CALL.match(n)),
+                 sum(1 for n in host if COPY_CALL.match(n)))
 
 
 def log(msg: str) -> None:
@@ -223,29 +302,29 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 def device_time(fn, calls: int = 20) -> tuple:
     """Device time of ``fn`` under torch.profiler, after a warm call: (ms
     per call of all its device work, {kernel, copy or fill name: ms per
-    call}). Unlike CUDA events around a loop of calls it leaves out the
-    host's time between launches."""
-    from torch.profiler import ProfilerActivity, profile
-
+    call}), or (None, {}) when none of PROFILE_TRIES traces is complete.
+    Unlike CUDA events around a loop of calls it leaves out the host's time
+    between launches."""
     fn()
-    torch.cuda.synchronize()
-    by_name: dict = {}
-    # A trace now and then comes back without its device events: try again.
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        for e in prof.events():
-            if str(e.device_type).endswith("CUDA"):
-                # "void (anonymous namespace)::place<true>(int const*, ...)" → "place"
-                match = re.search(r"::([A-Za-z_]\w*)[<(]", e.name)
-                name = match.group(1) if match else e.name[:32]
+    for tries in range(1, PROFILE_TRIES + 1):
+        trace = traced(lambda: [fn() for _ in range(calls)], tries)
+        if trace.complete:
+            by_name: dict = {}
+            for e in trace.device:
+                name = kernel_name(e)
                 by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
-        if by_name:
             return sum(by_name.values()), by_name
-    raise RuntimeError("three profiler traces came back without device events: device time "
-                       "not measured")
+    log(f"      (no complete trace in {PROFILE_TRIES}, the last with {trace.counts()}: device "
+        "time not measured)")
+    return None, {}
+
+
+def device_text(ms: Optional[float], parts: Optional[dict] = None) -> str:
+    """:func:`device_time`'s result for a log line."""
+    if ms is None:
+        return "not measured"
+    inner = ", ".join(f"{m} {v:.5f}" for m, v in (parts or {}).items())
+    return f"{ms:.5f} ms" + (f" ({inner})" if inner else "")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -581,10 +660,12 @@ def build_scene(w: int, h: int, n_pairs: int = 2) -> Scene:
     return Scene(w, h, frames, t_rl, (yaw_bump(0.5, 0.01) @ t_rl).astype(np.float32))
 
 
-def framesets(scene: Scene, device: str, aligned: bool = False):
-    """(color intrinsics, [(left, right) Framesets]); ``aligned``: the depth
-    comes from a depth camera of its own (ALIGN_FOCAL, ALIGN_T), one
-    calibration shared by every frame."""
+def framesets(scene: Scene, device: str, aligned: bool = False, n_pairs: Optional[int] = None):
+    """(color intrinsics, [(left, right) Framesets]): the scene's pairs, or
+    ``n_pairs`` of them cycling through the scene, each pair new Framesets
+    (new frame and depth-scale tensors, as the feeders deliver them) of one
+    calibration; ``aligned``: the depth comes from a depth camera of its own
+    (ALIGN_FOCAL, ALIGN_T)."""
     from pointcloud_depthfusion_tpu_torch.core.camera import Extrinsics, Intrinsics
     from pointcloud_depthfusion_tpu_torch.core.frameset import Frameset
 
@@ -598,10 +679,12 @@ def framesets(scene: Scene, device: str, aligned: bool = False):
                 scene.w, scene.h, fx=ALIGN_FOCAL * fx, fy=ALIGN_FOCAL * fx,
                 ppx=scene.w / 2 + 1.5, ppy=scene.h / 2 - 1.0, device=device),
             depth_to_color=Extrinsics.create(np.eye(3), ALIGN_T, device=device))
+    pairs = scene.frames if n_pairs is None else [
+        scene.frames[k % len(scene.frames)] for k in range(n_pairs)]
     return intr, [
         tuple(Frameset.create(f.depth, f.color, intr, depth_scale=f.depth_scale,
                               timestamp=f.timestamp, device=device, **calib) for f in pair)
-        for pair in scene.frames
+        for pair in pairs
     ]
 
 
@@ -661,7 +744,9 @@ def drive_main_path(scene: Scene, n_frames: int, n_median: int, tag: str) -> dic
     return {
         "zresolve_sorted_entries": n_frames + n_median,
         "zresolve_winner_rgb": n_frames + n_median,
-        # The color tail: one image launch a frame.
+        # The prep of both cameras and the color tail: one launch each a
+        # frame.
+        "fuse_prep": 2 * (n_frames + n_median),
         "gauss3x3_image": 2 * n_frames,
         "median3x3_image": 2 * n_median,
     }
@@ -670,64 +755,204 @@ def drive_main_path(scene: Scene, n_frames: int, n_median: int, tag: str) -> dic
 # -- phase 10: the fused prep (B3) and the u32 scatter-min --------------------
 
 
-def prep_inputs(scene: Scene, t_rl: np.ndarray, mirror: bool):
-    """B3's inputs for both cameras of the first frame pair of ``scene``
-    under the registration transform ``t_rl``: [(args for fuse_prep), ...]
-    and the fused pixel count."""
+def dual_prep(scene: Scene, t_rl: np.ndarray, mirror: bool) -> tuple:
+    """B3's inputs for the first frame pair of ``scene`` under ``t_rl``, as
+    FusionPipeline.process passes them (the two framesets' frames as
+    separate tensors): (depth, color, depth_scale, cam_to_virtual), the
+    cameras, and the fused pixel count."""
     from pointcloud_depthfusion_tpu_torch.core.camera import fused_virtual_intrinsics
-    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, fused_poses
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import (
+        FusionConfig, _z_range, fused_poses,
+    )
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
 
     intr, fs = framesets(scene, DEVICE)
     cfg = FusionConfig.create(vertical_image=True, mirror_image=mirror, device=DEVICE)
     fi = fused_virtual_intrinsics(intr, True)
     poses = fused_poses(cfg, torch.as_tensor(t_rl, device=DEVICE))
-    z_near, z_far = 0.5 * cfg.min_depth, cfg.max_depth + 1.0
-    return [(f.depth, f.color, f.depth_scale, cfg.min_depth, cfg.max_depth, f.color_intrinsics,
-             pose, fi, mirror, z_near, z_far) for f, pose in zip(fs[0], poses)], fi.width * fi.height
+    left, right = fs[0]
+    cams = B3.prep_cameras((left.color_intrinsics, right.color_intrinsics), fi, cfg.min_depth,
+                           cfg.max_depth, mirror, z_near=_z_range(cfg)[0],
+                           z_far=_z_range(cfg)[1])
+    args = ((left.depth, right.depth), (left.color, right.color),
+            (left.depth_scale, right.depth_scale), poses)
+    return args, cams, fi.width * fi.height
 
 
-def pose_of(args) -> torch.Tensor:
-    """B3's pose parameters for one camera's ``prep_inputs`` arguments."""
+def rig_prep(rig: Rig, per_camera: bool, offsets: int = 0) -> tuple:
+    """B3's inputs for frame 0 of ``rig`` as rig_fuse passes them: its
+    stacked (N, H, W) frames and the cameras; ``per_camera`` gives the first
+    RIG_CAMERAS of them the per-camera inverse Brown-Conrady intrinsics and
+    RIG_ROIS; camera i's pixel offset is i·``offsets``."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import fused_virtual_intrinsics
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
     from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
 
-    _, _, _, lo, hi, _, pose, fi, _, z_near, z_far = args
-    return B3.pose_params(pose, fi, lo, hi, z_near, z_far, DEVICE)
+    n = RIG_CAMERAS if per_camera else rig.n
+    args = [t[:n].contiguous() for t in rig_args(rig, 0, DEVICE)]
+    intr = rig_intrinsics(rig.w, rig.h, per_camera, device=DEVICE)
+    ref = intr[0] if per_camera else intr
+    cfg = FusionConfig.create(device=DEVICE, **RIG_CONFIG)
+    cams = B3.prep_cameras(intr if per_camera else (intr,) * n,
+                           fused_virtual_intrinsics(ref, False), cfg.min_depth, cfg.max_depth,
+                           False, rois=RIG_ROIS if per_camera else None,
+                           pix_offsets=[i * offsets for i in range(n)])
+    return args, cams
 
 
-def phase_prep(scenes, errs: dict) -> None:
-    """B3 on both cameras, both registration transforms, mirror on and off,
-    and the scatter-min on their keys: bit-exact to the plain versions."""
+def host_cams(cams):
+    """The same cameras with every tensor on the CPU."""
     from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
+
+    return B3.prep_cameras([i.to("cpu") for i in cams.intrinsics], cams.fused.to("cpu"),
+                           cams.min_depth.cpu(), cams.max_depth.cpu(), cams.mirror,
+                           rois=cams.rois, pix_offsets=cams.pix_offsets, z_near=cams.z_near.cpu(),
+                           z_far=cams.z_far.cpu(), device="cpu")
+
+
+def on_host(args):
+    return [t.cpu() if isinstance(t, torch.Tensor) else [u.cpu() for u in t] for t in args]
+
+
+def check_prep(label: str, args, cams, errs: dict, feed: bool = True,
+               per_stream: bool = False) -> tuple:
+    """B3 (output (b) with ``feed``, else (a)) against its plain version on
+    the card and on the CPU, bit for bit; returns the kernel's outputs."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
+
+    if feed:
+        got = B3.fuse_prep_feed(*args, cams, per_stream)
+        want = B3.fuse_prep_feed_plain(*args, cams, per_stream)
+        cpu = B3.fuse_prep_feed(*on_host(args), host_cams(cams), per_stream)
+    else:
+        got = B3.fuse_prep_keys(*args, cams)
+        want = B3.fuse_prep_keys_plain(*args, cams)
+        cpu = B3.fuse_prep_keys(*on_host(args), host_cams(cams))
+    torch.cuda.synchronize()
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    exact = all(torch.equal(a, b) and torch.equal(a.cpu(), c) for a, b, c in zip(got, want, cpu))
+    ok = got[2] if feed else got[1] != -1
+    log(f"[10] fuse_prep ({'b' if feed else 'a'}) {label} (N={cams.n}): max_abs_err={err} "
+        f"bit-exact to plain on the card and the CPU: {exact}; entries kept "
+        f"{float(ok.float().mean()):.4f}, valid {float(got[-1].float().mean()):.4f}")
+    if not exact:
+        raise AssertionError(f"B3 {label} differs from its plain version")
+    errs["fuse_prep"] = max(errs["fuse_prep"], err)
+    return got
+
+
+def check_scatter(label: str, feed: tuple, n_slots: int, errs: dict, rig_span: bool = False):
+    """Every scatter-min variant on a masked feed against its plain version
+    on the card and on the CPU, bit for bit: the packed keys built by the
+    kernel (raw, decoded, decoded with the z-buffer) and given (the same
+    three); then the key buffer must be all-ones again."""
     from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
 
+    zparams = Z.packed_zparams(0.25, 4.5, DEVICE, span=4.25 if rig_span else None)
+    key = Z.packed_keys_plain(*feed[1:], zparams)
+    host_feed, host_key, host_z = [t.cpu() for t in feed], key.cpu(), zparams.cpu()
+    variants = {}
+    for planes, need_zbuf, name in ((False, False, "raw"), (True, False, "planes"),
+                                    (True, True, "planes+zbuf")):
+        variants[f"feed {name}"] = (
+            lambda f, z, p=planes, nz=need_zbuf: Z.scatter_min_packed(*f[:4], n_slots, z, p, nz),
+            lambda p=planes, nz=need_zbuf: Z.scatter_min_packed_plain(*feed, n_slots, zparams,
+                                                                      p, nz))
+        variants[f"keys {name}"] = (
+            lambda f, z, p=planes, nz=need_zbuf: Z.scatter_min_u32(f[0], f[4], n_slots, z, p,
+                                                                   nz),
+            lambda p=planes, nz=need_zbuf: Z.scatter_min_u32_plain(feed[0], key, n_slots,
+                                                                   zparams, p, nz))
+    worst = 0
+    for name, (run, plain) in variants.items():
+        got = run((*feed, key), zparams)
+        want, cpu = plain(), run((*host_feed, host_key), host_z)
+        torch.cuda.synchronize()
+        got, want, cpu = ((t,) if isinstance(t, torch.Tensor) else t for t in (got, want, cpu))
+        err = max((max_abs_err(a, b) for a, b in zip(got, want) if a is not None), default=0)
+        same = all((a is None and b is None and c is None)
+                   or (torch.equal(a, b) and torch.equal(a.cpu(), c))
+                   for a, b, c in zip(got, want, cpu))
+        if not same:
+            raise AssertionError(f"scatter-min {name} on {label} differs from plain: {err}")
+        worst = max(worst, err)
+    if not keys_clean():
+        raise AssertionError(f"scatter-min on {label} left the key buffer dirty")
+    errs["scatter_min_u32"] = max(errs["scatter_min_u32"], worst)
+    n_in = int((feed[2] & (feed[0] >= 0) & (feed[0] < n_slots)).sum())
+    log(f"[10] scatter_min_u32 {label} (N={feed[0].numel()} n_slots={n_slots}, {n_in} kept, "
+        f"{'rig' if rig_span else 'dual'} span): {len(variants)} variants bit-exact to their "
+        f"plain versions on the card and the CPU, max_abs_err {worst}; key buffer all-ones")
+
+
+def packed_feed(n: int, n_slots: int, seed: int, ok_frac: float = 0.85) -> tuple:
+    """A masked feed for the scatter-min: slots with duplicates, ids past
+    the slots, z across and beyond the packed range, rgb24 over 24 bits."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    idx = torch.randint(-1, n_slots + n_slots // 8, (n,), generator=g, device=DEVICE,
+                        dtype=torch.int32)
+    z = torch.rand(n, generator=g, device=DEVICE) * 5.0 + 0.05
+    ok = torch.rand(n, generator=g, device=DEVICE) < ok_frac
+    rgb24 = torch.randint(0, 1 << 24, (n,), generator=g, device=DEVICE, dtype=torch.int32)
+    return idx, z, ok, rgb24
+
+
+def phase_prep(scenes, errs: dict) -> Rig:
+    """B3 and the scatter-min against their plain versions, bit for bit.
+    B3's feed (b) on both cameras of each dual size under both registration
+    transforms, mirror on and off, and on the 8-camera 848×480 rig (flat,
+    per-stream with pixel offsets, and its first RIG_CAMERAS cameras with
+    inverse Brown-Conrady intrinsics and RIG_ROIS); its packed keys (a) for
+    both cameras in one launch and through the one-camera JAX API. The
+    scatter-min in every variant on synthetic entries, on the real feed and
+    keys of each dual frame, on 100,000 entries over 64 slots, on entries
+    all invalid, on none, and through growing and shrinking n_slots on one
+    key buffer. Returns the rig (for phase 6)."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
+
     for scene in scenes:
-        for t_rl in (scene.t_rl, scene.t_rl2):
+        size = f"dual {scene.w}x{scene.h}"
+        for t_rl, t_name in ((scene.t_rl, "t_rl"), (scene.t_rl2, "t_rl2")):
             for mirror in (False, True):
-                cams, n_px = prep_inputs(scene, t_rl, mirror)
-                got = [B3.fuse_prep(*a) for a in cams]
-                want = [B3.fuse_prep_plain(*a) for a in cams]
-                # As FusionPipeline launches it: with the pose parameters built once.
-                posed = [B3.fuse_prep(*a, pose=pose_of(a)) for a in cams]
-                idx = torch.cat([i.reshape(-1) for i, _ in got])
-                key = torch.cat([k.reshape(-1) for _, k in got])
-                buf = Z.scatter_min_u32(idx, key, n_px)
-                buf_plain = Z.scatter_min_u32_plain(idx, key, n_px)
-                torch.cuda.synchronize()
-                e_prep = max(max_abs_err(g, w) for gw in zip(got, want) for g, w in zip(*gw))
-                e_scatter = max_abs_err(buf, buf_plain)
-                exact = (all(torch.equal(g, w) for gw in zip(got, want) for g, w in zip(*gw))
-                         and all(torch.equal(g, w) for gw in zip(got, posed) for g, w in zip(*gw))
-                         and torch.equal(buf, buf_plain))
-                valid = float((key != -1).float().mean())
-                log(f"[10] fuse_prep dual {scene.w}x{scene.h} mirror={mirror} pose "
-                    f"{'t_rl' if t_rl is scene.t_rl else 't_rl2'}: B3 max_abs_err={e_prep} "
-                    f"scatter_min_u32 max_abs_err={e_scatter} bit-exact={exact} "
-                    f"valid keys={valid:.4f} covered={float((buf != -1).float().mean()):.4f}")
-                if not exact:
-                    raise AssertionError(f"B3 or scatter_min_u32 differs from plain at "
-                                         f"{scene.w}x{scene.h} mirror={mirror}")
-                errs["fuse_prep"] = max(errs["fuse_prep"], e_prep)
-                errs["scatter_min_u32"] = max(errs["scatter_min_u32"], e_scatter)
+                args, cams, n_px = dual_prep(scene, t_rl, mirror)
+                label = f"{size} mirror={mirror} pose {t_name}"
+                feed = check_prep(label, args, cams, errs)
+                idx, key, _ = check_prep(label, args, cams, errs, feed=False)
+                # The one-camera JAX API: one launch each, the same keys.
+                for i in range(2):
+                    one = [t[i] for t in args]
+                    got = B3.fuse_prep(one[0], one[1], one[2], cams.min_depth, cams.max_depth,
+                                       cams.intrinsics[i], one[3], cams.fused, mirror,
+                                       cams.z_near, cams.z_far)
+                    want = B3.fuse_prep_plain(one[0], one[1], one[2], cams.min_depth,
+                                              cams.max_depth, cams.intrinsics[i], one[3],
+                                              cams.fused, mirror, cams.z_near, cams.z_far)
+                    sl = slice(i * idx.numel() // 2, (i + 1) * idx.numel() // 2)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a.reshape(-1), b.reshape(-1))
+                               for a, b in zip(got, want)) or not torch.equal(
+                                   got[1].reshape(-1), key[sl]):
+                        raise AssertionError(f"fuse_prep one camera {label} differs")
+                if mirror and t_name == "t_rl":
+                    check_scatter(f"real {size} feed", feed[:4], n_px, errs)
+    rig = build_rig(8, 848, 480, n_frames=1)
+    args, cams = rig_prep(rig, False)
+    check_prep("rig 8x848x480", args, cams, errs)
+    args, cams = rig_prep(rig, False, offsets=407_040 // 8)
+    check_prep("rig 8x848x480 per-stream, pixel offsets", args, cams, errs, per_stream=True)
+    args, cams = rig_prep(rig, True)
+    check_prep(f"rig {RIG_CAMERAS}x848x480 inverse Brown-Conrady, ROIs", args, cams, errs)
+    n_px = 848 * 480
+    check_scatter("synthetic 848x480", packed_feed(2 * n_px, n_px, 5), n_px, errs)
+    check_scatter("synthetic 848x480", packed_feed(2 * n_px, n_px, 6), n_px, errs, rig_span=True)
+    check_scatter("contention (100,000 entries on 64 slots)", packed_feed(100_000, 64, 64), 64,
+                  errs)
+    check_scatter("all invalid", packed_feed(4096, 1000, 11, ok_frac=0.0), 1000, errs)
+    check_scatter("no entries", packed_feed(0, 1000, 12), 1000, errs)
+    for k, n_slots in enumerate((1000, 407_040, 5000, 921_600, 64, 407_040, 1_000_000)):
+        check_scatter(f"grow/shrink step {k}", packed_feed(2 * n_slots + 3, n_slots, 100 + k),
+                      n_slots, errs)
+    return rig
 
 
 def phase_align(scenes) -> None:
@@ -844,7 +1069,8 @@ def drive_modes(scene: Scene, n_frames: int, tag: str) -> dict:
         # aligns and the tiled resolve.
         "zresolve_sorted_entries": 2 * n + 3 * n,
         "scatter_min_u32": 3 * n,
-        "fuse_prep": 2 * n,
+        # One B3 launch a frame in every mode, and in exact's tiled twin.
+        "fuse_prep": (len(MODES) + 1) * n,
         "gauss3x3_image": (len(MODES) + 1) * n,
     }
 
@@ -853,22 +1079,24 @@ def drive_modes(scene: Scene, n_frames: int, tag: str) -> dict:
 
 
 def time_pipeline(scene: Scene, card: str, warmup: int = 5, iters: int = 30) -> dict:
+    """ms/frame of the dual tiled frame, image only and with the z-buffer:
+    every frame new Framesets, as the feeders deliver them."""
     from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, FusionPipeline
 
-    intr, fs = framesets(scene, DEVICE)
     out = {}
     for zbuf in (False, True):
         cfg = FusionConfig.create(vertical_image=True, mirror_image=True, emit_zbuf=zbuf,
                                   device=DEVICE)
+        intr, fs = framesets(scene, DEVICE, n_pairs=iters + warmup)
         pipe = FusionPipeline(intr, cfg, device=DEVICE)
         pipe.set_right_transform(scene.t_rl)
-        left, right = fs[0]
+        pairs = iter(fs)
         t0 = time.perf_counter()
-        ms = cuda_ms(lambda: pipe.process(left, right), iters, warmup)
+        ms = cuda_ms(lambda: pipe.process(*next(pairs)), iters, warmup)
         host_ms = (time.perf_counter() - t0) * 1e3 / (iters + warmup)
         key = f"dual_{scene.w}x{scene.h}_{'zbuf' if zbuf else 'image_only'}"
         out[key] = ms
-        log(f"[6] process {key}: {ms:.4f} ms/frame (CUDA events, {iters} frames after "
+        log(f"[6] process {key}: {ms:.4f} ms/frame (CUDA events, {iters} new frame pairs after "
             f"{warmup} warm-up; host wall incl. warm-up {host_ms:.4f} ms/frame) on {card}")
     return out
 
@@ -970,9 +1198,9 @@ def time_resolve(scenes, card: str) -> dict:
             if label.startswith("synthetic") and name in REPLACES:
                 rows[name] = (k, p, library, b_ms, b_by)
             log(f"[6] {name} on the {label} entries (N={n} n_px={n_px}, {valid:.4f} valid): "
-                f"wrapper {k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}), device {dk:.5f} ms ("
-                + ", ".join(f"{m} {v:.5f}" for m, v in parts.items())
-                + f"), bare launch {bare_ms:.5f} ms, plain {p:.5f} ms ({each[2]:.5f}, "
+                f"wrapper {k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}), device "
+                f"{device_text(dk, parts)}, bare launch {bare_ms:.5f} ms, plain {p:.5f} ms "
+                f"({each[2]:.5f}, "
                 f"{each[3]:.5f}), library {library:.5f} ms (scatter_reduce_ amin), bound "
                 f"{b_ms:.5f} ms by {b_by} on {card}")
     if not keys_clean():
@@ -1030,110 +1258,209 @@ def time_color_tail(card: str) -> dict:
                 dk, _ = device_time(fn)
                 key = f"{form} {mode or 'copy'} {h}x{w}"
                 out[key] = (ms, dk)
-                log(f"[6] color tail, {key}: image kernel {ms:.5f} ms (device {dk:.5f}) on {card}")
+                log(f"[6] color tail, {key}: image kernel {ms:.5f} ms (device "
+                    f"{device_text(dk)}) on {card}")
     return out
 
 
-def profile_frame(scene: Scene, card: str) -> int:
-    """One warm dual ``tiled`` frame (image only, Gauss tail) under the
-    profiler: its device ops. Fails above FRAME_OPS_CEILING["dual"]."""
+def profile_frame(scene: Scene, card: str, mode: str = "tiled", limit: bool = True) -> int:
+    """One warm dual frame under the profiler, ``tiled`` (image only, Gauss
+    tail) or the ``pallas`` or ``packed`` mode, on new Framesets as the
+    feeders deliver them: its device ops. Fails above its FRAME_OPS_CEILING
+    when ``limit``."""
     from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, FusionPipeline
 
-    intr, fs = framesets(scene, DEVICE)
-    cfg = FusionConfig.create(vertical_image=True, mirror_image=True, emit_zbuf=False,
-                              device=DEVICE)
+    # A pair for the warm-up and one for each trace profiled() may take.
+    intr, fs = framesets(scene, DEVICE, n_pairs=PROFILE_TRIES + 1)
+    cfg = (FusionConfig.create(vertical_image=True, mirror_image=True, emit_zbuf=False,
+                               device=DEVICE) if mode == "tiled" else mode_config(mode, device=DEVICE))
     pipe = FusionPipeline(intr, cfg, device=DEVICE)
     pipe.set_right_transform(scene.t_rl)
-    left, right = fs[0]
-    pipe.process(left, right)
-    wall, busy, ops = profiled(lambda: pipe.process(left, right), "[6]", top=4)
-    log(f"[6] profiled warm frame (dual {scene.w}x{scene.h} tiled image only): wall {wall:.3f} "
-        f"ms, device busy {busy:.3f} ms, {ops} device ops (ceiling {FRAME_OPS_CEILING['dual']}) "
+    pairs = iter(fs)
+    pipe.process(*next(pairs))
+    wall, busy, ops = profiled(lambda: pipe.process(*next(pairs)), "[6]", top=4)
+    key = "dual" if mode == "tiled" else f"dual {mode}"
+    ceiling = FRAME_OPS_CEILING.get(key) if limit else None
+    log(f"[6] profiled warm frame (dual {scene.w}x{scene.h} {mode}"
+        f"{' image only' if mode == 'tiled' else ''}): wall {wall:.3f} ms, device busy "
+        f"{busy_text(busy, wall)}, {ops} device ops"
+        f"{'' if ceiling is None else f' (ceiling {ceiling})'} "
         f"on {card}")
-    if ops > FRAME_OPS_CEILING["dual"]:
-        raise AssertionError(f"dual {scene.w}x{scene.h} tiled frame: {ops} device ops, ceiling "
-                             f"{FRAME_OPS_CEILING['dual']}")
+    if ceiling is not None and ops > ceiling:
+        raise AssertionError(f"dual {scene.w}x{scene.h} {mode} frame: {ops} device ops, "
+                             f"ceiling {ceiling}")
     return ops
 
 
 def time_modes(scene: Scene, card: str, warmup: int = 3, iters: int = 20) -> dict:
     """ms/frame of each mode of MODES (with the z-buffer, as every one of
-    them but tiled always emits it)."""
+    them but tiled always emits it), every frame new Framesets."""
     from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionPipeline
 
     out = {}
     for mode in MODES:
-        intr, fs = framesets(scene, DEVICE, aligned=mode == "tiled+align")
+        intr, fs = framesets(scene, DEVICE, aligned=mode == "tiled+align", n_pairs=iters + warmup)
         pipe = FusionPipeline(intr, mode_config(mode, device=DEVICE), device=DEVICE)
         pipe.set_right_transform(scene.t_rl)
-        left, right = fs[0]
+        pairs = iter(fs)
         t0 = time.perf_counter()
-        ms = cuda_ms(lambda: pipe.process(left, right), iters, warmup)
+        ms = cuda_ms(lambda: pipe.process(*next(pairs)), iters, warmup)
         host_ms = (time.perf_counter() - t0) * 1e3 / (iters + warmup)
         key = f"dual_{scene.w}x{scene.h}_{mode}"
         out[key] = ms
-        log(f"[6] process {key}: {ms:.4f} ms/frame (CUDA events, {iters} frames after "
+        log(f"[6] process {key}: {ms:.4f} ms/frame (CUDA events, {iters} new frame pairs after "
             f"{warmup} warm-up; host wall incl. warm-up {host_ms:.4f} ms/frame) on {card}")
     return out
 
 
-def time_prep_kernels(scene: Scene, card: str) -> dict:
-    """B3 on one camera and the scatter-min over both cameras' keys of the
-    ``scene``'s first frame pair: {name: (ms, plain_ms, library_ms or None,
-    bound_ms, bound_by)}."""
+def bare_prep(args, cams, feed: bool):
+    """One launch of B3 on prebuilt outputs, with no checks: the launch
+    alone, as the wrapper makes it."""
     from pointcloud_depthfusion_tpu_torch.ops.cuda import _build
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
+
+    depth, color = args[:2]
+    h, w = (depth if isinstance(depth, torch.Tensor) else depth[0]).shape[-2:]
+    n, dev = cams.n, cams.device
+    d_ptr, d_stride, _ = B3._cameras(depth, n, (h, w), torch.int32, "depth", dev)
+    c_ptr, c_stride, _ = B3._cameras(color, n, (h, w, 3), torch.uint8, "color", dev)
+    s_ptr, s_stride, _ = B3._rows(args[2], n, 1, "depth_scale", dev)
+    p_ptr, p_stride, _ = B3._rows(args[3], n, 16, "cam_to_virtual", dev)
+    outs = [torch.empty(n * h * w, dtype=dt, device=dev)
+            for dt in (torch.int32, torch.int32, torch.float32, torch.bool, torch.int32,
+                       torch.bool)]
+    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
+    ptrs = [o.data_ptr() for o in outs]
+    call = (d_ptr, d_stride, c_ptr, c_stride, 0, p_ptr, p_stride, s_ptr, s_stride,
+            cams.static.data_ptr(), cams.ints.data_ptr(), n, h, w, cams.fused.width,
+            cams.fused.height, int(cams.mirror), int(feed), *ptrs[:5], int(feed), ptrs[5], stream)
+    return lambda: lib.fuse_prep_launch(*call)
+
+
+def bare_scatter(feed: tuple, key, n_slots: int, zparams, planes: bool, need_zbuf: bool):
+    """One launch of the scatter-min on prebuilt outputs and the stream's
+    key buffer, with no checks."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import _build
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
+
+    idx, z, ok, rgb24 = feed
+    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
+    keys = Z._key_buffer(idx.device, stream, (n_slots + 1) // 2)
+    bits = torch.empty(n_slots, dtype=torch.int32, device=DEVICE)
+    out = torch.empty((3, n_slots), dtype=torch.uint8, device=DEVICE)
+    zbuf = torch.empty(n_slots, dtype=torch.float32, device=DEVICE)
+    given = key is not None
+    call = (idx.data_ptr(), key.data_ptr() if given else None, z.data_ptr(), ok.data_ptr(),
+            rgb24.data_ptr(), zparams.data_ptr(), idx.numel(), int(not given), keys.data_ptr(),
+            n_slots, int(planes), bits.data_ptr(), *(p.data_ptr() for p in out), zbuf.data_ptr(),
+            int(need_zbuf), stream)
+    return lambda: lib.scatter_min_u32_launch(*call)
+
+
+def time_one(name: str, label: str, kernel, plain, bare, b_ms: float, b_by: str,
+             library, card: str) -> tuple:
+    """A kernel's wrapper (CUDA events around 20 calls, in turns with its
+    plain version), its device time by the profiler and its bare launch:
+    (ms, plain_ms, library_ms, bound_ms, bound_by), logged."""
+    k, p, each = turns(kernel, plain)
+    dk, parts = device_time(kernel)
+    bare_ms = cuda_ms(bare, 50)
+    log(f"[6] {name} {label}: wrapper {k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}), device "
+        f"{device_text(dk, parts)}, bare launch {bare_ms:.5f} ms, plain {p:.5f} ms "
+        f"({each[2]:.5f}, {each[3]:.5f}), "
+        f"library {'none' if library is None else f'{library:.5f} ms (scatter_reduce_ amin)'}, "
+        f"bound {b_ms:.5f} ms by {b_by} on {card}")
+    return k, p, library, b_ms, b_by
+
+
+def time_prep_kernels(scenes, rig: Rig, card: str) -> dict:
+    """B3 and the scatter-min at the main paths' shapes: B3's feed (b) and
+    keys (a) for both cameras of each dual frame and its feed for the
+    8-camera rig; the scatter-min in the packed mode's variant (the feed,
+    decoded with the z-buffer), the pallas mode's (given keys, decoded) and
+    the raw one on each dual frame's entries, and the packed variant on
+    100,000 entries over 64 slots. Returns the kernel table's rows (dual
+    848×480): {name: (ms, plain_ms, library_ms, bound_ms, bound_by)}."""
     from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
     from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
 
-    cams, n_px = prep_inputs(scene, scene.t_rl, True)
-    preps = [B3.fuse_prep(*a) for a in cams]
-    idx = torch.cat([i.reshape(-1) for i, _ in preps])
-    key = torch.cat([k.reshape(-1) for _, k in preps])
-    n_cam, n = scene.w * scene.h, idx.numel()
+    rows = {}
+    preps = {f"dual {s.w}x{s.h}": dual_prep(s, s.t_rl, True) for s in scenes}
+    first = f"dual {scenes[0].w}x{scenes[0].h}"
+    rig_args_, rig_cams = rig_prep(rig, False)
+    preps[f"rig {rig.n}x{rig.w}x{rig.h}"] = (rig_args_, rig_cams, None)
+    for label, (args, cams, n_px) in preps.items():
+        n_cam = cams.n * args[0][0].numel()
+        # 4 B depth + 3 B color in; (b) 14 B out a pixel, (a) 9 B; about 60
+        # f32 operations a pixel.
+        for feed, out_b in ((True, 14), (False, 9)):
+            if not feed and n_px is None:
+                continue
+            b_ms, b_by = bound((7 + out_b) * n_cam, 60 * n_cam)
+            if feed:
+                kernel = lambda: B3.fuse_prep_feed(*args, cams)  # noqa: E731
+                plain = lambda: B3.fuse_prep_feed_plain(*args, cams)  # noqa: E731
+            else:
+                kernel = lambda: B3.fuse_prep_keys(*args, cams)  # noqa: E731
+                plain = lambda: B3.fuse_prep_keys_plain(*args, cams)  # noqa: E731
+            row = time_one("fuse_prep", f"({'b' if feed else 'a'}) {label}", kernel, plain,
+                           bare_prep(args, cams, feed), b_ms, b_by, None, card)
+            if feed and label == first:
+                rows["fuse_prep"] = row
+        if n_px is None:
+            continue
+        feed = B3.fuse_prep_feed(*args, cams)[:4]
+        zparams = Z.packed_zparams(cams.z_near, cams.z_far, DEVICE)
+        row = time_scatter(label, feed, n_px, zparams, card)
+        if label == first:
+            rows["scatter_min_u32"] = row
+    time_scatter("contention 100000 on 64", packed_feed(100_000, 64, 64), 64,
+                 Z.packed_zparams(0.25, 4.5, DEVICE), card)
+    return rows
+
+
+def time_scatter(label: str, feed: tuple, n_slots: int, zparams, card: str) -> tuple:
+    """The scatter-min's variants on one feed: the packed mode's (the feed,
+    decoded with the z-buffer), the pallas mode's (its keys given, decoded
+    with the z-buffer) and the raw bits of given keys; beside the bound and
+    ``scatter_reduce_``'s time on the same keys. Returns the packed
+    variant's row."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
+
+    idx = feed[0]
+    n = idx.numel()
+    key = Z.packed_keys_plain(*feed[1:], zparams)
     # The library's scatter-min: one scatter_reduce_(amin) of prebuilt int64
     # key values into a dump-slotted buffer.
-    slot = torch.where((idx >= 0) & (idx < n_px), idx, n_px).to(torch.int64)
+    slot = torch.where((idx >= 0) & (idx < n_slots), idx, n_slots).to(torch.int64)
     key64 = Z.u32_value(key)
-    buf = torch.full((n_px + 1,), 0xFFFFFFFF, dtype=torch.int64, device=DEVICE)
+    buf = torch.full((n_slots + 1,), 0xFFFFFFFF, dtype=torch.int64, device=DEVICE)
     library = cuda_ms(lambda: buf.scatter_reduce_(0, slot, key64, "amin", include_self=True), 20)
-    pose = pose_of(cams[0])
-    pairs = {
-        # One camera, launched as FusionPipeline launches it (pose parameters
-        # built once): 4 B depth + 3 B color in, 4 B index + 4 B key out per
-        # pixel; about 45 f32 and 25 integer operations per pixel.
-        "fuse_prep": (lambda: B3.fuse_prep(*cams[0], pose=pose),
-                      lambda: B3.fuse_prep_plain(*cams[0], pose=pose),
-                      None, bound(15 * n_cam, 70 * n_cam)),
-        # 8 B in per entry, 4 B out per pixel; a compare and an atomic per
-        # entry.
-        "scatter_min_u32": (lambda: Z.scatter_min_u32(idx, key, n_px),
-                            lambda: Z.scatter_min_u32_plain(idx, key, n_px),
-                            library, bound(8 * n + 4 * n_px, 2 * n)),
+    # In: 13 B an entry from the feed, 8 B given keys; out: 7 B a slot
+    # decoded with the z-buffer, 4 B raw; a compare and an atomic an entry.
+    cases = {
+        "feed, planes+zbuf (packed)": (
+            lambda: Z.scatter_min_packed(*feed, n_slots, zparams, True, True),
+            lambda: Z.scatter_min_packed_plain(*feed, n_slots, zparams, True, True),
+            bare_scatter(feed, None, n_slots, zparams, True, True), 13 * n + 7 * n_slots),
+        "given keys, planes+zbuf (pallas)": (
+            lambda: Z.scatter_min_u32(idx, key, n_slots, zparams, True, True),
+            lambda: Z.scatter_min_u32_plain(idx, key, n_slots, zparams, True, True),
+            bare_scatter(feed, key, n_slots, zparams, True, True), 8 * n + 7 * n_slots),
+        "given keys, raw": (
+            lambda: Z.scatter_min_u32(idx, key, n_slots),
+            lambda: Z.scatter_min_u32_plain(idx, key, n_slots),
+            bare_scatter(feed, key, n_slots, zparams, False, False), 8 * n + 4 * n_slots),
     }
-    # What B3's wrapper spends around its launch: gathering the frame's
-    # camera parameters onto the prebuilt pose ones, against the bare launch
-    # on prebuilt parameters and outputs.
-    params = B3.prep_params(*cams[0][2:8], *cams[0][9:11], DEVICE, pose)
-    params_ms = cuda_ms(lambda: B3.prep_params(*cams[0][2:8], *cams[0][9:11], DEVICE, pose), 20)
-    depth, color, fi = cams[0][0], cams[0][1], cams[0][7]
-    out_idx, out_key = torch.empty_like(depth), torch.empty_like(depth)
-    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
-    bare_ms = cuda_ms(lambda: lib.fuse_prep_launch(
-        depth.data_ptr(), color.data_ptr(), params.data_ptr(), scene.h, scene.w, fi.width,
-        fi.height, 1, out_idx.data_ptr(), out_key.data_ptr(), stream), 50)
-    log(f"[6] fuse_prep at one {scene.w}x{scene.h} camera: the camera parameter gather "
-        f"(one torch.stack, one torch.cat) {params_ms:.5f} ms, the bare launch {bare_ms:.5f} ms on {card}")
-    out = {}
-    for name, (kernel, plain, lib_ms, (b_ms, b_by)) in pairs.items():
-        k, p, each = turns(kernel, plain)
-        out[name] = (k, p, lib_ms, b_ms, b_by)
-        shape = (f"one {scene.w}x{scene.h} camera" if name == "fuse_prep"
-                 else f"N={n} n_px={n_px}")
-        log(f"[6] {name} at {shape}: kernel {k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}), "
-            f"plain {p:.5f} ms ({each[2]:.5f}, {each[3]:.5f}), library "
-            f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms (scatter_reduce_ amin)'}, "
-            f"bound {b_ms:.5f} ms by {b_by} on {card}")
-    return out
+    rows = {}
+    for name, (kernel, plain, bare, n_bytes) in cases.items():
+        b_ms, b_by = bound(n_bytes, 2 * n)
+        rows[name] = time_one("scatter_min_u32", f"{name} on the {label} entries (N={n} "
+                              f"n_slots={n_slots})", kernel, plain, bare, b_ms, b_by, library,
+                              card)
+    if not keys_clean():
+        raise AssertionError("the timed scatter-mins left the key buffer dirty")
+    return rows["feed, planes+zbuf (packed)"]
 
 
 # -- phase 7: segment-sum kernel ---------------------------------------------
@@ -1259,9 +1586,8 @@ def time_segsum(scenes, card: str) -> dict:
                 dk, parts = device_time(lambda: B5.segsum_sorted(slot, chans, n_slots))
                 out[what] = (k, p, lib, b_ms, b_by, dk)
                 log(f"[9] segsum_sorted {what} (N={n} C={c} n_slots={n_slots}): kernel "
-                    f"{k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}; device {dk:.5f}: "
-                    + ", ".join(f"{m} {v:.5f}" for m, v in parts.items())
-                    + f"), plain {p:.5f} ms ({each[2]:.5f}, {each[3]:.5f}), index_add_ (sums "
+                    f"{k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}; device {device_text(dk, parts)}), "
+                    f"plain {p:.5f} ms ({each[2]:.5f}, {each[3]:.5f}), index_add_ (sums "
                     f"only) {lib:.5f} ms, bound {b_ms:.5f} ms by {b_by} on {card}")
     return out
 
@@ -1375,23 +1701,37 @@ def drive_registration(scene: Scene, settings, tag: str) -> tuple:
 def profiled(fn, tag: str, top: int = 12) -> tuple:
     """``fn()`` once under torch.profiler, ending in synchronize(): (wall
     ms, device busy ms, device ops); logs the ops that take the device's
-    time under ``tag``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    rows = sorted(prof.key_averages(), key=lambda e: -getattr(e, "self_device_time_total", 0))
+    time under ``tag``. An incomplete trace is taken again, up to
+    PROFILE_TRIES times. If none is complete, the device ops are the
+    host's launches, copies and fills of the last trace, and the busy time
+    is None (not measured); a trace without them raises (no unmeasured 0
+    is counted)."""
+    for tries in range(1, PROFILE_TRIES + 1):
+        trace = traced(fn, tries)
+        if trace.complete:
+            break
+        log(f"{tag}   (trace {tries}, margins {profile_margin(tries):.2f} s: "
+            f"{trace.counts()}; incomplete)")
+    else:
+        if not trace.launches + trace.copy_calls:
+            raise RuntimeError(f"{tag}: {PROFILE_TRIES} profiler traces came back without "
+                               "device events or launches: device ops not measured")
+        log(f"{tag}   no complete trace: device ops from the host's launches, copies and "
+            "fills, device busy not measured")
+        return trace.wall, None, trace.launches + trace.copy_calls
+    if len(trace.device) - trace.kernels != trace.copy_calls:
+        log(f"{tag}   ({trace.counts()})")
+    rows = sorted(trace.prof.key_averages(),
+                  key=lambda e: -getattr(e, "self_device_time_total", 0))
     for e in rows[:top]:
         log(f"{tag}   {getattr(e, 'self_device_time_total', 0) / 1e3:9.3f} ms  "
             f"x{e.count:<5d} {e.key[:90]}")
-    return wall, busy, len(kernels)
+    return trace.wall, sum(e.time_range.elapsed_us() for e in trace.device) / 1e3, len(trace.device)
+
+
+def busy_text(busy: Optional[float], wall: float) -> str:
+    """Device busy ms and its share of ``wall``, or "not measured"."""
+    return "not measured" if busy is None else f"{busy:.3f} ms ({100 * busy / wall:.1f}%)"
 
 
 def profile_tick(pipe, scene: Scene, card: str) -> dict:
@@ -1401,7 +1741,7 @@ def profile_tick(pipe, scene: Scene, card: str) -> dict:
     wall, busy, n_ops = profiled(lambda: pipe.tick(dl, dr), "[9]")
     iters = pipe.telemetry[-1].iterations
     log(f"[9] profiled warm tick (dual {scene.w}x{scene.h}): wall {wall:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall:.1f}%), {n_ops} device ops (kernels, copies, "
+        f"{busy_text(busy, wall)}, {n_ops} device ops (kernels, copies, "
         f"fills), {iters} iterations ({n_ops / max(iters, 1):.1f} per iteration) on {card}")
     return {"wall_ms": wall, "busy_ms": busy, "kernels": n_ops, "iterations": iters}
 
@@ -1479,6 +1819,30 @@ def rig_args(rig: Rig, k: int, device, batch: int = 0):
     return out
 
 
+def fresh_rig_args(rig: Rig, count: int, device, batch: int = 0):
+    """An iterator over ``count`` new copies of frame 0's rig_args (new
+    depth-scale and cam_to_virtual tensors each, as the rig node builds
+    them every batch)."""
+    return iter([rig_args(rig, 0, device, batch) for _ in range(count)])
+
+
+def profile_rig_frame(rig: Rig, case: str, card: str, limit: bool = True) -> int:
+    """One warm rig frame of ``case`` under the profiler, on new tensors:
+    its device ops. Fails above its FRAME_OPS_CEILING when ``limit``."""
+    fn, _ = rig_case(rig, case, DEVICE)
+    frames = fresh_rig_args(rig, PROFILE_TRIES + 1, DEVICE)
+    fn(*next(frames))
+    wall, busy, ops = profiled(lambda: fn(*next(frames)), "[12]", top=6)
+    ceiling = FRAME_OPS_CEILING.get(f"rig {case}") if limit else None
+    log(f"[12] profiled warm frame ({rig.n}x{rig.w}x{rig.h} {case}): wall {wall:.3f} ms, "
+        f"device busy {busy_text(busy, wall)}, {ops} device ops"
+        f"{'' if ceiling is None else f' (ceiling {ceiling})'} on {card}")
+    if ceiling is not None and ops > ceiling:
+        raise AssertionError(f"rig {rig.n}x{rig.w}x{rig.h} {case}: {ops} device ops, "
+                             f"ceiling {ceiling}")
+    return ops
+
+
 def rig_case(rig: Rig, case: str, device):
     """(rig_fuse step, render mode) of one RIG_CASES case on ``device``."""
     from pointcloud_depthfusion_tpu_torch.core.camera import fused_virtual_intrinsics
@@ -1497,14 +1861,15 @@ def rig_case(rig: Rig, case: str, device):
 def rig_expected(case: str, n: int, frames: int) -> dict:
     """The launches of ``frames`` frames of one case on the card."""
     fields, multi, _ = RIG_CASES[case]
+    out = {"fuse_prep": frames}
     if fields.get("render_mode") == "packed":
-        out = {"scatter_min_u32": frames}
+        out["scatter_min_u32"] = frames
     elif multi and n >= 2:
-        out = {"zresolve_sorted_streams": frames}
+        out["zresolve_sorted_streams"] = frames
     elif fields.get("emit_zbuf", True):
-        out = {"zresolve_sorted_entries": frames}
+        out["zresolve_sorted_entries"] = frames
     else:
-        out = {"zresolve_winner_rgb": frames}
+        out["zresolve_winner_rgb"] = frames
     # The color tail: one image launch a frame, filtering or not.
     if fields.get("filter_fused_color", RIG_CONFIG["filter_fused_color"]):
         out["median3x3_image" if fields.get("use_median_filter") else "gauss3x3_image"] = frames
@@ -1585,10 +1950,10 @@ def drive_batched(rig: Rig, batch: int, tag: str) -> dict:
                 f"rig_fuse on the card: {same}")
             if not same:
                 raise AssertionError(f"{tag}: batched {mode} differs from per-stream")
-        # The resolve and the color tail: one launch each for the batch and
-        # for each stream of the per-stream reference.
-        for name in ("scatter_min_u32" if mode == "packed" else "zresolve_sorted_entries",
-                     "color_image"):
+        # The prep, the resolve and the color tail: one launch each for the
+        # batch and for each stream of the per-stream reference.
+        for name in ("fuse_prep", "scatter_min_u32" if mode == "packed"
+                     else "zresolve_sorted_entries", "color_image"):
             expected[name] = expected.get(name, 0) + (1 + batch) * len(rig.frames)
     return expected
 
@@ -1723,7 +2088,8 @@ def drive_node(w: int, h: int, truth: bool, timed: bool, card: str) -> tuple:
     segsum = sum(4 if t.target_grid_rebuilt else 2
                  for k in card_runs for pipe in runs[k][0]._pair_pipes or ()
                  for t in pipe.telemetry)
-    expected = {"zresolve_winner_rgb": len(card_runs) * NODE_FRAMES,
+    expected = {"fuse_prep": len(card_runs) * NODE_FRAMES,
+                "zresolve_winner_rgb": len(card_runs) * NODE_FRAMES,
                 "color_image": len(card_runs) * NODE_FRAMES, "segsum_sorted": segsum}
     uploads = [u for k in card_runs for u in runs[k][2]]
     metrics[f"node_{size}_upload_ms_mean"] = float(np.mean(uploads))
@@ -1757,7 +2123,8 @@ def phase_streams(errs: dict) -> None:
 
 
 def time_rig(rigs: dict, card: str, iters: int = 10, warmup: int = 2) -> dict:
-    """ms/frame of every rig case and of the batched rig (CUDA events)."""
+    """ms/frame of every rig case and of the batched rig (CUDA events),
+    every frame new tensors."""
     from pointcloud_depthfusion_tpu_torch.core.camera import fused_virtual_intrinsics
     from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
     from pointcloud_depthfusion_tpu_torch.parallel.mesh import batched_rig_fuse
@@ -1767,9 +2134,9 @@ def time_rig(rigs: dict, card: str, iters: int = 10, warmup: int = 2) -> dict:
         rig = rigs[(n, w, h)]
         for case in cases:
             fn, _ = rig_case(rig, case, DEVICE)
-            args = rig_args(rig, 0, DEVICE)
+            frames = fresh_rig_args(rig, iters + warmup, DEVICE)
             key = f"rig_{n}x{w}x{h}_{case}"
-            out[key] = cuda_ms(lambda: fn(*args), iters, warmup)
+            out[key] = cuda_ms(lambda: fn(*next(frames)), iters, warmup)
     rig = rigs[RIG_BATCHED[0]]
     batch = RIG_BATCHED[1]
     intr = rig_intrinsics(rig.w, rig.h)
@@ -1777,9 +2144,9 @@ def time_rig(rigs: dict, card: str, iters: int = 10, warmup: int = 2) -> dict:
         cfg = FusionConfig.create(render_mode=mode, device=DEVICE, **RIG_CONFIG)
         fb = batched_rig_fuse(intr, fused_virtual_intrinsics(intr, False), cfg, batch,
                               rig.n // batch, device=DEVICE)
-        args = rig_args(rig, 0, DEVICE, batch)
+        frames = fresh_rig_args(rig, iters + warmup, DEVICE, batch)
         out[f"batched_{batch}x{rig.n // batch}x{rig.w}x{rig.h}_{mode}"] = cuda_ms(
-            lambda: fb(*args), iters, warmup)
+            lambda: fb(*next(frames)), iters, warmup)
     for key, ms in out.items():
         log(f"[12] {key}: {ms:.4f} ms/frame (CUDA events, {iters} frames after {warmup} "
             f"warm-up) on {card}")
@@ -1850,16 +2217,7 @@ def phase_rig(card: str, errs: dict) -> tuple:
         raise AssertionError(f"launch counts {launches} != expected {expected}")
     frame_ms = time_rig(rigs, card)
     for key in RIG_PROFILED:
-        fn, _ = rig_case(rigs[key[:3]], key[3], DEVICE)
-        args = rig_args(rigs[key[:3]], 0, DEVICE)
-        fn(*args)
-        wall, busy, ops = profiled(lambda: fn(*args), "[12]", top=6)
-        ceiling = FRAME_OPS_CEILING.get(f"rig {key[3]}")
-        log(f"[12] profiled warm frame ({key[0]}x{key[1]}x{key[2]} {key[3]}): wall {wall:.3f} "
-            f"ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), {ops} device ops"
-            f"{'' if ceiling is None else f' (ceiling {ceiling})'} on {card}")
-        if ceiling is not None and ops > ceiling:
-            raise AssertionError(f"rig {key}: {ops} device ops, ceiling {ceiling}")
+        profile_rig_frame(rigs[key[:3]], key[3], card)
     streams = time_streams(rigs[RIG_STREAMS_TIMED], card)
     log(f"[12] summary ms/frame {json.dumps(frame_ms)} node {json.dumps(metrics)} on {card}")
     return launches, streams, {**frame_ms, **metrics}
@@ -2089,12 +2447,12 @@ def run_deployment_recorded(manifest: dict, dev) -> tuple:
 
 
 def deployment_expected(summary: dict) -> dict:
-    """A card deployment's launches: B2 and one B4 image per fused frame
+    """A card deployment's launches: B3, B2 and one B4 image per fused frame
     (fusion_default.yaml: tiled with the z-buffer, Gauss tail); B5 4 per
     rebuilt target grid and 2 per cached tick."""
     frames, ticks, rebuilds = (summary[k] for k in ("frames", "registration_ticks",
                                                     "registration_grid_rebuilds"))
-    return {"zresolve_sorted_entries": frames, "gauss3x3_image": frames,
+    return {"fuse_prep": frames, "zresolve_sorted_entries": frames, "gauss3x3_image": frames,
             "segsum_sorted": 4 * rebuilds + 2 * (ticks - rebuilds)}
 
 
@@ -2249,8 +2607,10 @@ def phase_node_timing(scenes, tmp: str, card: str) -> tuple:
                 log(f"[13e] process_profiled {size}, mean of frames 2-{len(rows) - 1} (ms): "
                     + " ".join(f"{k}={v:.4f}" for k, v in laps.items()) + f" on {card}")
                 metrics[f"node_{size}_laps_ms"] = laps
-    # Each fused frame: B2 and one B4 image (tiled with the z-buffer).
-    return {"zresolve_sorted_entries": frames, "gauss3x3_image": frames}, metrics
+    # Each fused frame, profiled or not: B3, B2 and one B4 image (tiled with
+    # the z-buffer).
+    return ({"fuse_prep": frames, "zresolve_sorted_entries": frames, "gauss3x3_image": frames},
+            metrics)
 
 
 def phase_filters_and_deployment(scenes, card: str, errs: dict) -> tuple:
@@ -2314,7 +2674,7 @@ def main() -> int:
     scene_720 = build_scene(1280, 720)
     phase_resolve((scene_848, scene_720), errs)
     phase_filters(errs)
-    phase_prep((scene_848, scene_720), errs)
+    rig_8 = phase_prep((scene_848, scene_720), errs)
     phase_align((scene_848, scene_720))
 
     # [4], [5] the fused frame; the launch counts cover exactly these phases.
@@ -2343,6 +2703,10 @@ def main() -> int:
     if mode_launches != expected:
         raise AssertionError(f"launch counts {mode_launches} != expected {expected}")
 
+    # [6] device ops of warm dual frames, profiled here: late in the run the
+    # profiler's traces come back without device events far more often.
+    frame_ops = {f"dual {s.w}x{s.h} {mode}": profile_frame(s, card, mode)
+                 for s in (scene_848, scene_720) for mode in ("tiled", "pallas", "packed")}
     log(f"[11] done at {time.perf_counter() - t_start:.1f} s")
     # [7] B5 against its plain version on the registration clouds
     reg_scenes = [s for s in (scene_848, scene_720) if (s.w, s.h) in REG_SIZES]
@@ -2385,11 +2749,9 @@ def main() -> int:
     frame_ms = {**time_pipeline(scene_848, card), **time_pipeline(scene_720, card),
                 **time_modes(scene_848, card), **time_modes(scene_720, card)}
     kernel_ms = {**time_kernels(card), **time_resolve((scene_848, scene_720), card),
-                 **time_prep_kernels(scene_848, card)}
-    time_prep_kernels(scene_720, card)
+                 **time_prep_kernels((scene_848, scene_720), rig_8, card)}
     tail_ms = time_color_tail(card)
-    frame_ops = {f"dual {s.w}x{s.h}": profile_frame(s, card) for s in (scene_848, scene_720)}
-    log(f"[6] summary color tail (ms, device ms) {json.dumps(tail_ms)}; device ops per tiled "
+    log(f"[6] summary color tail (ms, device ms) {json.dumps(tail_ms)}; device ops per warm "
         f"frame {json.dumps(frame_ops)} on {card}")
     log(f"[6] summary ms/frame {json.dumps(frame_ms)} on {card}")
     tick_ms = {}

@@ -47,7 +47,8 @@
 // of [0, n_px) and writes all-ones back where a key was set, so every call
 // leaves the buffer as it found it and no call needs a fill pass or a
 // scratch allocation. The same bytes serve the 32-bit keys of a
-// depth-only resolve (all-ones either way).
+// depth-only resolve and of the u32 scatter-min below (all-ones either
+// way).
 //
 // Why one launch. The scatter and the decode must not interleave with
 // another resolve's on the same buffer. With two launches on one stream,
@@ -70,7 +71,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr unsigned int kSign = 0x80000000u;
-constexpr int kThreads = 256;
 constexpr int kResolveThreads = 512;
 
 struct Resolve {
@@ -184,12 +184,6 @@ int launch_resolve(Resolve r, cudaStream_t s) {
       kernel, dim3(blocks < 1 ? 1 : blocks), dim3(kResolveThreads), args, 0, s));
 }
 
-int blocks_for(int n) {
-  int b = (n + kThreads - 1) / kThreads;
-  // Grid-stride loops: a few waves over 132 SMs are enough.
-  return b < 1 ? 1 : (b > 132 * 16 ? 132 * 16 : b);
-}
-
 bool aligned(const void* p, uintptr_t to) {
   return (reinterpret_cast<uintptr_t>(p) & (to - 1)) == 0;
 }
@@ -221,42 +215,184 @@ extern "C" int zresolve_launch(const int* pix, const int* zbits, const unsigned 
 // Per-slot unsigned 32-bit minimum: the packed, indexed and pallas render
 // modes' `buf.at[idx].min(key, mode="drop")` (an XLA scatter in the JAX
 // package, pointcloud_depthfusion_tpu/ops/render.py:218, :286 and
-// fusion/pipeline.py:358; no Pallas kernel). Keys arrive as the bit
-// patterns of i32 tensors. One 32-bit atomicMin per entry; order-free, so
-// deterministic. Bound: 8 B read per entry, 4 B written per slot.
+// fusion/pipeline.py:358; no Pallas kernel), with the packed mode's key
+// build and decode folded in. Keys are the bit patterns of i32 tensors.
+//
+// One cooperative launch a call, like the resolve above: one 32-bit
+// atomicMin per entry into the stream's persistent key buffer (its int64
+// words read as 2·n u32 words, all-ones either way), a grid-wide barrier,
+// then per slot: read the minimum, write the outputs, reset the slot to
+// all-ones. The atomics do not depend on their order: bit-exact and
+// deterministic.
+//
+// Inputs: given keys (idx, key), or the masked feed of the render's prep
+// (idx, f32 z, ok, rgb24) from which the kernel builds the packed key
+//     zq = (int)clamp((z - near) / span · 16383, 0, 16382)
+//     key = zq << 18 | RGB666(rgb24)
+// (ops/render.py's op order; zparams = (near, span, far) on the device:
+// the dual frame's span is f32(far) - f32(near), the rig's f32(far - near)).
+// Outputs: the raw minimum bits, or the packed decode: three u8 planes
+// (c6 << 2 | c6 >> 4, black where no entry landed) and, when asked, the
+// f32 z-buffer zq / 16383 · (far - near) + near (FLT_MAX where empty),
+// ops/render._decode_packed_planes's arithmetic.
+//
+// Bound: bytes and atomics. 8 B read per given entry (13 B from the feed),
+// an atomic per landing entry; per slot the key's read and reset and 4 B
+// (raw) or 3-7 B (planes) written.
 namespace {
 
-__global__ void fill_u32(unsigned int* out, int n_slots) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_slots;
-       i += gridDim.x * blockDim.x) {
-    out[i] = 0xFFFFFFFFu;
+constexpr float kZLevels14 = 16383.0f;
+constexpr float kFltMax = 3.402823466e+38f;
+
+struct MinU32 {
+  const int* idx;            // (n,) slot; outside [0, n_slots) is dropped
+  const int* key;            // (n,) given u32 key bits, or unread
+  const float* z;            // (n,) the feed's z, or unread
+  const unsigned char* ok;   // (n,) the feed's mask
+  const int* rgb24;          // (n,) the feed's rgb24
+  const float* zparams;      // (3,) near, span, far; read by the feed and the z decode
+  int n;
+  int n_slots;
+  unsigned int* keys;        // the persistent buffer, all-ones between calls
+  int* bits;                 // (n_slots,) raw output
+  unsigned char* r;          // (n_slots,) planes
+  unsigned char* g;
+  unsigned char* b;
+  float* zbuf;               // (n_slots,), written when with_zbuf
+  int with_zbuf;
+  bool vec;                  // entries 16 B aligned (the mask 4 B): int4 loads
+};
+
+__device__ __forceinline__ void put_key(const MinU32& m, int p, unsigned int key) {
+  if (key != 0xFFFFFFFFu && static_cast<unsigned int>(p) < static_cast<unsigned int>(m.n_slots)) {
+    atomicMin(m.keys + p, key);
   }
 }
 
-__global__ void scatter_min_u32_kernel(const int* __restrict__ idx,
-                                       const unsigned int* __restrict__ key,
-                                       int n, unsigned int* out, int n_slots) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const int p = idx[i];
-    if (p < 0 || p >= n_slots) continue;
-    atomicMin(out + p, key[i]);
+__device__ __forceinline__ void put_feed(const MinU32& m, int p, float z, unsigned int ok,
+                                         int rgb24, float near, float span) {
+  if (ok == 0u || static_cast<unsigned int>(p) >= static_cast<unsigned int>(m.n_slots)) return;
+  const float q = fminf(fmaxf(__fmul_rn(__fdiv_rn(__fsub_rn(z, near), span), kZLevels14), 0.0f),
+                        kZLevels14 - 1.0f);
+  const unsigned int u = static_cast<unsigned int>(rgb24);
+  const unsigned int rgb666 =
+      (((u >> 18) & 0x3Fu) << 12) | (((u >> 10) & 0x3Fu) << 6) | ((u >> 2) & 0x3Fu);
+  atomicMin(m.keys + p, (static_cast<unsigned int>(static_cast<int>(q)) << 18) | rgb666);
+}
+
+template <bool kFeed>
+__device__ __forceinline__ void scatter_u32(const MinU32& m, int tid, int stride) {
+  const float near = kFeed ? m.zparams[0] : 0.0f;
+  const float span = kFeed ? m.zparams[1] : 1.0f;
+  int done = 0;
+  if (m.vec) {
+    const int nq = m.n >> 2;
+    const int4* idx4 = reinterpret_cast<const int4*>(m.idx);
+    for (int q = tid; q < nq; q += stride) {
+      const int4 p = __ldg(idx4 + q);
+      if (kFeed) {
+        const float4 z = __ldg(reinterpret_cast<const float4*>(m.z) + q);
+        const int4 c = __ldg(reinterpret_cast<const int4*>(m.rgb24) + q);
+        const unsigned int ok = __ldg(reinterpret_cast<const unsigned int*>(m.ok) + q);
+        put_feed(m, p.x, z.x, ok & 0xFFu, c.x, near, span);
+        put_feed(m, p.y, z.y, (ok >> 8) & 0xFFu, c.y, near, span);
+        put_feed(m, p.z, z.z, (ok >> 16) & 0xFFu, c.z, near, span);
+        put_feed(m, p.w, z.w, ok >> 24, c.w, near, span);
+      } else {
+        const int4 k = __ldg(reinterpret_cast<const int4*>(m.key) + q);
+        put_key(m, p.x, static_cast<unsigned int>(k.x));
+        put_key(m, p.y, static_cast<unsigned int>(k.y));
+        put_key(m, p.z, static_cast<unsigned int>(k.z));
+        put_key(m, p.w, static_cast<unsigned int>(k.w));
+      }
+    }
+    done = nq << 2;
   }
+  // The ragged tail, or every entry of an unaligned view.
+  for (int i = done + tid; i < m.n; i += stride) {
+    if (kFeed) {
+      put_feed(m, __ldg(m.idx + i), __ldg(m.z + i), m.ok[i], __ldg(m.rgb24 + i), near, span);
+    } else {
+      put_key(m, __ldg(m.idx + i), static_cast<unsigned int>(__ldg(m.key + i)));
+    }
+  }
+}
+
+// Per slot: the minimum into the outputs, and the slot back to all-ones.
+template <bool kPlanes>
+__device__ __forceinline__ void decode_reset_u32(const MinU32& m, int tid, int stride) {
+  float near = 0.0f, zspan = 0.0f;
+  if (kPlanes && m.with_zbuf) {
+    near = m.zparams[0];
+    zspan = __fsub_rn(m.zparams[2], near);
+  }
+  for (int i = tid; i < m.n_slots; i += stride) {
+    const unsigned int k = __ldcg(m.keys + i);
+    const bool covered = k != 0xFFFFFFFFu;
+    if (covered) m.keys[i] = 0xFFFFFFFFu;
+    if (!kPlanes) {
+      m.bits[i] = static_cast<int>(k);
+      continue;
+    }
+    const unsigned int kk = covered ? k : 0u;
+    const unsigned int r6 = (kk >> 12) & 0x3Fu, g6 = (kk >> 6) & 0x3Fu, b6 = kk & 0x3Fu;
+    m.r[i] = static_cast<unsigned char>((r6 << 2) | (r6 >> 4));
+    m.g[i] = static_cast<unsigned char>((g6 << 2) | (g6 >> 4));
+    m.b[i] = static_cast<unsigned char>((b6 << 2) | (b6 >> 4));
+    if (m.with_zbuf) {
+      m.zbuf[i] = covered ? __fadd_rn(__fmul_rn(__fdiv_rn(static_cast<float>(kk >> 18), kZLevels14),
+                                                zspan), near)
+                          : kFltMax;
+    }
+  }
+}
+
+template <bool kFeed, bool kPlanes>
+__global__ void __launch_bounds__(kResolveThreads) scatter_min_u32_kernel(MinU32 m) {
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  scatter_u32<kFeed>(m, tid, stride);
+  cg::this_grid().sync();
+  decode_reset_u32<kPlanes>(m, tid, stride);
+}
+
+template <bool kFeed, bool kPlanes>
+int launch_scatter_min(MinU32 m, cudaStream_t s) {
+  const void* kernel = reinterpret_cast<const void*>(&scatter_min_u32_kernel<kFeed, kPlanes>);
+  static const int most = resident_most(kernel);
+  const int quads = (m.n + 3) / 4;
+  const int work = quads > m.n_slots ? quads : m.n_slots;
+  int blocks = (work + kResolveThreads - 1) / kResolveThreads;
+  blocks = blocks < most ? blocks : most;
+  void* args[] = {&m};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      kernel, dim3(blocks < 1 ? 1 : blocks), dim3(kResolveThreads), args, 0, s));
 }
 
 }  // namespace
 
-// idx: (n,) i32 slot, dropped outside [0, n_slots). key: (n,) u32 bits.
-// out: (n_slots,) u32, 0xFFFFFFFF where no entry landed. Launches on
-// `stream`; returns cudaGetLastError().
-extern "C" int scatter_min_u32_launch(const int* idx, const unsigned int* key,
-                                      int n, unsigned int* out, int n_slots,
-                                      void* stream) {
+// idx: (n,) i32 slot. With feed = 0, key: (n,) u32 bits; with feed = 1, z
+// (n,) f32, ok (n,) bytes and rgb24 (n,) i32, keyed with zparams. keys: at
+// least n_slots u32 with every bit set, and left so. With planes = 0 the
+// minimum bits go to bits (n_slots,) i32, 0xFFFFFFFF where empty; with
+// planes = 1 the decode goes to r, g, b (n_slots,) u8 and, when with_zbuf,
+// zbuf (n_slots,) f32. (An empty tensor's pointer may be null: n and
+// n_slots, not the pointers, say what is read.) One cooperative launch on
+// `stream`; returns its status, or cudaGetLastError() when it launched.
+extern "C" int scatter_min_u32_launch(const int* idx, const int* key, const float* z,
+                                      const unsigned char* ok, const int* rgb24,
+                                      const float* zparams, int n, int feed,
+                                      unsigned int* keys, int n_slots, int planes, int* bits,
+                                      unsigned char* r, unsigned char* g, unsigned char* b,
+                                      float* zbuf, int with_zbuf, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fill_u32<<<blocks_for(n_slots), kThreads, 0, s>>>(out, n_slots);
-  if (n > 0) {
-    scatter_min_u32_kernel<<<blocks_for(n), kThreads, 0, s>>>(idx, key, n, out,
-                                                              n_slots);
-  }
-  return static_cast<int>(cudaGetLastError());
+  MinU32 m{idx, key, z, ok, rgb24, zparams, n, n_slots, keys, bits, r, g, b, zbuf, with_zbuf,
+           false};
+  m.vec = aligned(idx, 16) &&
+          (feed ? aligned(z, 16) && aligned(rgb24, 16) && aligned(ok, 4) : aligned(key, 16));
+  const int status = feed ? (planes ? launch_scatter_min<true, true>(m, s)
+                                    : launch_scatter_min<true, false>(m, s))
+                          : (planes ? launch_scatter_min<false, true>(m, s)
+                                    : launch_scatter_min<false, false>(m, s));
+  return status ? status : static_cast<int>(cudaGetLastError());
 }

@@ -7,10 +7,13 @@ FusionNode::processSyncedFrames, fusion_node.cpp:700-811), run eagerly:
     the virtual pose) → merge → project → z-resolve → color tail (B4: the
     winner's decode and color filter in one launch)
 
-Every render mode of the JAX package: "tiled" and "exact" resolve on B1/B2,
-"packed" and "indexed" on one u32 scatter-min, and "pallas" runs the
-per-pixel prep as kernel B3 (ops/cuda/fuse_prep_cuda.py) before the same
-scatter-min as "packed".
+The per-pixel prep of both cameras (filter through project) is one launch
+of kernel B3 (ops/cuda/fuse_prep_cuda.py) in every render mode: its masked
+feed for "tiled" and "exact", which resolve on B1/B2, for "packed", whose
+u32 scatter-min builds and decodes the packed keys in the same launch, and
+for "indexed"; its packed keys for "pallas", the JAX package's Pallas
+prep. :meth:`FusionPipeline.process_profiled` runs the same launches, with
+a lap after each.
 """
 
 from __future__ import annotations
@@ -24,11 +27,11 @@ from pointcloud_depthfusion_tpu_torch.core import geometry as G
 from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics, fused_virtual_intrinsics
 from pointcloud_depthfusion_tpu_torch.core.frameset import Frameset
 from pointcloud_depthfusion_tpu_torch.device import resolve_device
-from pointcloud_depthfusion_tpu_torch.ops import filters as F
 from pointcloud_depthfusion_tpu_torch.ops import render as R
 from pointcloud_depthfusion_tpu_torch.ops.align import align_depth_to_color, auto_footprint
-from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda, zresolve_cuda
-from pointcloud_depthfusion_tpu_torch.ops.cuda.fuse_prep_cuda import fuse_prep, pose_params
+from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda
+from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
+from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
 
 RENDER_MODES = ("tiled", "exact", "indexed", "packed", "pallas")
 
@@ -150,56 +153,83 @@ def _check_config(config: FusionConfig) -> None:
         )
 
 
-def _filter_camera(fs: Frameset, roi, config: FusionConfig, footprint):
-    """Per-camera filter stage: [align] → filter. Returns (depth, valid)."""
-    depth = fs.depth
-    if config.align_frames:
-        depth = align_depth_to_color(depth, fs.depth_scale, fs.depth_intrinsics,
-                                     fs.color_intrinsics, fs.depth_to_color,
-                                     max_footprint=footprint)
-    return F.filter_depth(depth, fs.depth_scale, config.min_depth, config.max_depth, roi)
+def _zparams(config: FusionConfig) -> torch.Tensor:
+    """The packed key's (near, span, far) of the config's z range."""
+    return Z.packed_zparams(*_z_range(config), config.min_depth.device)
 
 
-def _deproject_camera(fs: Frameset, depth: torch.Tensor, valid: torch.Tensor):
-    """Per-camera deprojection: (x, y, z, valid) planes."""
-    depth_m = depth.to(torch.float32) * fs.depth_scale
-    return G.deproject_planar(depth_m, fs.color_intrinsics, valid)
+def _camera_depth(fs: Frameset, config: FusionConfig, footprint) -> torch.Tensor:
+    """A camera's raw depth, aligned to its color camera with
+    ``align_frames``."""
+    if not config.align_frames:
+        return fs.depth
+    return align_depth_to_color(fs.depth, fs.depth_scale, fs.depth_intrinsics,
+                                fs.color_intrinsics, fs.depth_to_color,
+                                max_footprint=footprint)
 
 
-def _merge(left: Frameset, right: Frameset, xyz_l, xyz_r, val_l, val_r):
-    """Stack the two posed clouds and their rgb24 colors on a camera axis."""
-    x, y, z = (torch.stack([a, b]) for a, b in zip(xyz_l, xyz_r))
-    val = torch.stack([val_l, val_r])
+def _color_planes(left: Frameset, right: Frameset):
+    """The two cameras' colors: their rgb24 planes when both carry one,
+    else their (H, W, 3) u8 images."""
     if left.color_packed is not None and right.color_packed is not None:
-        rgb24 = torch.stack([left.color_packed, right.color_packed])
-    else:
-        rgb24 = R.pack_rgb(torch.stack([left.color, right.color]))
-    return x, y, z, val, rgb24
+        return left.color_packed, right.color_packed
+    return left.color, right.color
 
 
-def _render(x, y, z, val, rgb24, config: FusionConfig, fused_intrinsics: Intrinsics):
-    """Project and resolve the merged cloud in the configured mode: (the
-    packed winner (H·W,) of tiled/exact or the (r, g, b) planes of
-    packed/indexed, z-buffer or None)."""
+def _prep(left: Frameset, right: Frameset, config: FusionConfig, fused_intrinsics: Intrinsics,
+          memo: Optional[B3.Memo]):
+    """B3's cameras for this pair and the packed key's z parameters (None
+    for tiled/exact). ``memo``: a ``B3.Memo`` keeping both while the
+    calibration and config stay; None builds them. The poses and depth
+    scales are no part of them: B3 reads those from their tensors on every
+    launch."""
+
+    def cameras():
+        z_near, z_far = _z_range(config)
+        cams = B3.prep_cameras(
+            (left.color_intrinsics, right.color_intrinsics), fused_intrinsics,
+            config.min_depth, config.max_depth, config.mirror_image,
+            rois=(config.roi_left, config.roi_right), z_near=z_near, z_far=z_far)
+        return cams, None if config.render_mode in ("tiled", "exact") else _zparams(config)
+
+    if memo is None:
+        return cameras()
+    return memo.get(
+        (*B3.intrinsics_key(left.color_intrinsics), *B3.intrinsics_key(right.color_intrinsics),
+         config, fused_intrinsics), cameras)
+
+
+def _prep_feed(left: Frameset, right: Frameset, depth, fused_t, right_total,
+               config: FusionConfig, fused_intrinsics: Intrinsics, memo: Optional[B3.Memo]):
+    """Both cameras' masked feed (idx, z, ok, rgb24), their (2, H, W) valid
+    planes and the packed key's z parameters: one B3 launch on ``depth``
+    (the raw or aligned depth of each camera)."""
+    cams, zparams = _prep(left, right, config, fused_intrinsics, memo)
+    *feed, valid = B3.fuse_prep_feed(depth, _color_planes(left, right),
+                                     (left.depth_scale, right.depth_scale),
+                                     (fused_t, right_total), cams)
+    return feed, valid, zparams
+
+
+def _render(idx, zc, ok, rgb24, config: FusionConfig, fused_intrinsics: Intrinsics, zparams):
+    """Resolve the masked feed (flat idx, z, ok, rgb24) in the configured
+    mode: (the packed winner (H·W,) of tiled/exact or the (r, g, b) planes
+    of packed/indexed, z-buffer or None)."""
     w_f, h_f = fused_intrinsics.width, fused_intrinsics.height
-    z_near, z_far = _z_range(config)
-    mirror = config.mirror_image
+    n_px = w_f * h_f
     if config.render_mode == "packed":
-        return R.project_zbuffer_packed_planar(
-            x, y, z, None, None, None, val, fused_intrinsics, mirror=mirror,
-            z_near=z_near, z_far=z_far, return_planes=True, rgb24=rgb24,
-        )
-    if config.render_mode == "indexed":
-        covered, widx = R.indexed_winner_planar(
-            x, y, z, val, fused_intrinsics, mirror=mirror, z_near=z_near, z_far=z_far,
-        )
-        rp, gp, bp, zb = R.indexed_winner_gather(covered, widx, z, None, None, None, rgb24=rgb24)
-        return tuple(p.reshape(h_f, w_f) for p in (rp, gp, bp)), zb.reshape(h_f, w_f)
-    # tiled and exact share one winner contract; exact always emits the z-buffer
-    return R.tiled_winner_planar(
-        x, y, z, None, None, None, val, fused_intrinsics, mirror=mirror,
-        need_zbuf=config.emit_zbuf or config.render_mode == "exact", rgb24=rgb24,
-    )
+        *planes, zb = Z.scatter_min_packed(idx, zc, ok, rgb24, n_px, zparams, planes=True,
+                                           need_zbuf=True)
+    elif config.render_mode == "indexed":
+        covered, widx = R.indexed_winner(idx, zc, ok, n_px, zparams[0], zparams[2])
+        *planes, zb = R.indexed_winner_gather(covered, widx, zc, None, None, None, rgb24=rgb24)
+    else:
+        # tiled and exact share one winner contract; exact always emits the
+        # z-buffer
+        mrgb, minz = R._resolve_exact(idx, zc, ok, rgb24, n_px,
+                                      config.emit_zbuf or config.render_mode == "exact")
+        return mrgb, None if minz is None else R._zbuf(minz, h_f, w_f)
+    return tuple(p.reshape(h_f, w_f) for p in planes), zb.reshape(h_f, w_f)
 
 
 def color_mode(config: FusionConfig) -> Optional[str]:
@@ -229,31 +259,25 @@ def fuse_posed(
     config: FusionConfig,
     fused_intrinsics: Intrinsics,
     footprints=None,
-    prep_poses=None,
+    prep_memo: Optional[B3.Memo] = None,
 ) -> FusionResult:
     """:func:`fuse` with the two virtual-camera poses given (see
     :func:`fused_poses`). ``footprints``: the (left, right) align splat
     caps, resolved by the caller; ``None`` takes ``config.align_footprint``
-    for both. ``prep_poses``: the pallas mode's (left, right)
-    ``fuse_prep_cuda.pose_params`` of the two poses, built by the caller;
-    ``None`` builds them."""
+    for both. ``prep_memo``: the ``B3.Memo`` where the caller keeps B3's
+    cameras across frames (``None`` builds them)."""
     _check_config(config)
     if config.render_mode == "pallas":
         return _fuse_pallas(left, right, fused_t, right_total, config, fused_intrinsics,
-                            prep_poses)
+                            prep_memo)
     foot_l, foot_r = footprints or (config.align_footprint,) * 2
-    dl, val_l = _filter_camera(left, config.roi_left, config, foot_l)
-    dr, val_r = _filter_camera(right, config.roi_right, config, foot_r)
-    *xyz_l, val_l = _deproject_camera(left, dl, val_l)
-    *xyz_r, val_r = _deproject_camera(right, dr, val_r)
-    xyz_l = G.transform_planar(*xyz_l, fused_t)
-    xyz_r = G.transform_planar(*xyz_r, right_total)
-    merged = _merge(left, right, xyz_l, xyz_r, val_l, val_r)
-    color, zbuf = _render(*merged, config, fused_intrinsics)
+    depth = (_camera_depth(left, config, foot_l), _camera_depth(right, config, foot_r))
+    feed, valid, zparams = _prep_feed(left, right, depth, fused_t, right_total, config,
+                                      fused_intrinsics, prep_memo)
+    color, zbuf = _render(*feed, config, fused_intrinsics, zparams)
     return FusionResult(
-        image=_color_tail(color, config, fused_intrinsics), zbuf=zbuf, valid_left=val_l,
-        valid_right=val_r,
-        timestamp=left.timestamp,
+        image=_color_tail(color, config, fused_intrinsics), zbuf=zbuf, valid_left=valid[0],
+        valid_right=valid[1], timestamp=left.timestamp,
     )
 
 
@@ -264,10 +288,11 @@ def _fuse_pallas(
     right_total: torch.Tensor,
     config: FusionConfig,
     fused_intrinsics: Intrinsics,
-    prep_poses=None,
+    prep_memo: Optional[B3.Memo] = None,
 ) -> FusionResult:
-    """Packed-mode fusion with the per-pixel math in kernel B3 (JAX
-    pipeline.py:317-378)."""
+    """Packed-mode fusion with the per-pixel math in kernel B3's packed-key
+    output, one launch for both cameras (JAX pipeline.py:317-378), then the
+    scatter-min and its decode in one launch."""
     if config.align_frames:
         raise ValueError("pallas mode expects pre-aligned depth")
     if config.roi_left is not None or config.roi_right is not None:
@@ -275,26 +300,17 @@ def _fuse_pallas(
             "pallas mode does not implement ROI masking; use "
             "packed/indexed/exact/tiled"
         )
-    z_near, z_far = _z_range(config)
-    preps = [
-        fuse_prep(fs.depth, fs.color, fs.depth_scale, config.min_depth, config.max_depth,
-                  fs.color_intrinsics, t, fused_intrinsics, config.mirror_image, z_near, z_far,
-                  pose=pose)
-        for fs, t, pose in zip((left, right), (fused_t, right_total), prep_poses or (None, None))
-    ]
-    idx = torch.cat([i.reshape(-1) for i, _ in preps])
-    key = torch.cat([k.reshape(-1) for _, k in preps])
+    cams, zparams = _prep(left, right, config, fused_intrinsics, prep_memo)
+    # valid is the depth-window validity, as in the other modes (the keys'
+    # sentinel marks in-bounds projections, a different set).
+    idx, key, valid = B3.fuse_prep_keys((left.depth, right.depth), (left.color, right.color),
+                                        (left.depth_scale, right.depth_scale),
+                                        (fused_t, right_total), cams)
     h_f, w_f = fused_intrinsics.height, fused_intrinsics.width
-    buf = zresolve_cuda.scatter_min_u32(idx, key, w_f * h_f)
-    *planes, zbuf = R._decode_packed_planes(buf, z_near, z_far)
+    *planes, zbuf = Z.scatter_min_u32(idx, key, w_f * h_f, zparams, planes=True, need_zbuf=True)
     image = _color_tail(tuple(p.reshape(h_f, w_f) for p in planes), config, fused_intrinsics)
-    zbuf = zbuf.reshape(h_f, w_f)
-    # valid_* carry the depth-window validity, as in the other modes (the
-    # keys' sentinel marks in-bounds projections, a different set).
-    _, val_l = F.filter_depth(left.depth, left.depth_scale, config.min_depth, config.max_depth)
-    _, val_r = F.filter_depth(right.depth, right.depth_scale, config.min_depth, config.max_depth)
     return FusionResult(
-        image=image, zbuf=zbuf, valid_left=val_l, valid_right=val_r,
+        image=image, zbuf=zbuf.reshape(h_f, w_f), valid_left=valid[0], valid_right=valid[1],
         timestamp=left.timestamp,
     )
 
@@ -321,9 +337,10 @@ class FusionPipeline:
     """Holds config and intrinsics on one device (``device=None``: the
     card); :meth:`process` fuses each synchronized frame pair.
 
-    The two virtual-camera poses (and, in the pallas mode, B3's pose
-    parameters) depend only on the config and the registration transform,
-    so they are computed when the transform is set, not per frame. With
+    The two virtual-camera poses depend only on the config and the
+    registration transform, so they are computed when the transform is
+    set, not per frame; B3's cameras are kept while the framesets'
+    calibration stays (``B3.Memo``). With
     ``align_frames`` and ``align_footprint="auto"``, each camera's splat cap
     is read on the host (a sync on the card) by :meth:`calibrate`, which
     :meth:`process` calls on its first frame pair only: call it again when
@@ -345,6 +362,7 @@ class FusionPipeline:
         )
         self._donate = donate
         self._footprints = None
+        self._prep_memo = B3.Memo()
         self.set_right_transform(torch.eye(4, dtype=torch.float32))
 
     def set_right_transform(self, transform) -> None:
@@ -353,14 +371,6 @@ class FusionPipeline:
             transform, dtype=torch.float32
         ).to(self.device)
         self._poses = fused_poses(self.config, self.right_transform)
-        self._prep_poses = None
-        if self.config.render_mode == "pallas":
-            cfg = self.config
-            self._prep_poses = tuple(
-                pose_params(t, self.fused_intrinsics, cfg.min_depth, cfg.max_depth,
-                            *_z_range(cfg), self.device)
-                for t in self._poses
-            )
 
     def calibrate(self, left: Frameset, right: Frameset) -> None:
         """Resolve each camera's align splat cap from these framesets'
@@ -378,23 +388,21 @@ class FusionPipeline:
         if self._footprints is None:
             self.calibrate(left, right)
         return fuse_posed(left, right, *self._poses, self.config, self.fused_intrinsics,
-                          self._footprints, self._prep_poses)
+                          self._footprints, self._prep_memo)
 
     def process_profiled(self, left: Frameset, right: Frameset):
         """:meth:`process` with a fenced lap after each stage (the
         reference's getTiming, fusion_node.cpp:620-631).
 
         Returns (FusionResult, laps, host image): ``laps`` holds the
-        milliseconds of the schema's device stages, ``filter``,
-        ``deproject``, ``transform_right`` (right cloud into the virtual
-        camera), ``transform`` (left cloud), ``fuse`` (merge),
-        ``project`` (resolve and decode), ``filter_image`` and
-        ``copy_from_gpu``. The stages are :meth:`process`'s own operations
-        with the right pose composed, so the image equals its image bit for
-        bit (the JAX package's split programs transform the merged cloud
-        instead and may differ in the last bit). The host stages are the
-        caller's. ``pallas`` mode has no stage boundaries and raises, as
-        in the JAX package."""
+        milliseconds of the device stages ``prep`` ([align], then B3's one
+        launch: the reference's filter, deproject, transform and merge
+        stages and the projection to pixels), ``project`` (resolve and
+        decode), ``filter_image`` (B4) and ``copy_from_gpu``. The stages
+        are :meth:`process`'s own launches, so the image equals its image
+        bit for bit. The host stages are the caller's. ``pallas`` mode
+        raises, as in the JAX package, whose Pallas prep has no stage
+        boundaries."""
         from pointcloud_depthfusion_tpu_torch.utils.profiling import StageTimer  # noqa: PLC0415
 
         cfg = self.config
@@ -406,27 +414,18 @@ class FusionPipeline:
             )
         if self._footprints is None:
             self.calibrate(left, right)
-        fused_t, right_total = self._poses
         foot_l, foot_r = self._footprints
         timer = StageTimer()
-        dl, val_l = _filter_camera(left, cfg.roi_left, cfg, foot_l)
-        dr, val_r = _filter_camera(right, cfg.roi_right, cfg, foot_r)
-        timer.lap("filter", dl, dr)
-        *xyz_l, val_l = _deproject_camera(left, dl, val_l)
-        *xyz_r, val_r = _deproject_camera(right, dr, val_r)
-        timer.lap("deproject", xyz_l[0], xyz_r[0])
-        xyz_r = G.transform_planar(*xyz_r, right_total)
-        timer.lap("transform_right", xyz_r[0])
-        xyz_l = G.transform_planar(*xyz_l, fused_t)
-        timer.lap("transform", xyz_l[0])
-        merged = _merge(left, right, xyz_l, xyz_r, val_l, val_r)
-        timer.lap("fuse", merged[0], merged[4])
-        color, zbuf = _render(*merged, cfg, self.fused_intrinsics)
+        depth = (_camera_depth(left, cfg, foot_l), _camera_depth(right, cfg, foot_r))
+        feed, valid, zparams = _prep_feed(left, right, depth, *self._poses, cfg,
+                                          self.fused_intrinsics, self._prep_memo)
+        timer.lap("prep", *feed, valid)
+        color, zbuf = _render(*feed, cfg, self.fused_intrinsics, zparams)
         timer.lap("project", *(color if isinstance(color, tuple) else (color,)))
         image = _color_tail(color, cfg, self.fused_intrinsics)
         timer.lap("filter_image", image)
         host_image = image.cpu().numpy()
         timer.lap("copy_from_gpu")
-        result = FusionResult(image=image, zbuf=zbuf, valid_left=val_l, valid_right=val_r,
+        result = FusionResult(image=image, zbuf=zbuf, valid_left=valid[0], valid_right=valid[1],
                               timestamp=left.timestamp)
         return result, timer.laps, host_image

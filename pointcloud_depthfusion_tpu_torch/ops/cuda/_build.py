@@ -104,12 +104,13 @@ def _compile(nvcc: str, srcs: List[pathlib.Path], target: pathlib.Path) -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.zresolve_launch.argtypes = [p, p, p, p, i, i, i, p, i, p, p, p]
     lib.zresolve_launch.restype = i
-    lib.scatter_min_u32_launch.argtypes = [p, p, i, p, i, p]
+    lib.scatter_min_u32_launch.argtypes = [p, p, p, p, p, p, i, i, p, i, i, p, p, p, p, p, i, p]
     lib.scatter_min_u32_launch.restype = i
-    lib.fuse_prep_launch.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+    lib.fuse_prep_launch.argtypes = [p, ll, p, ll, i, p, ll, p, ll, p, p, i, i, i, i, i, i, i, p,
+                                     p, p, p, p, i, p, p]
     lib.fuse_prep_launch.restype = i
     lib.color3x3_launch.argtypes = [p, p, p, p, p, i, i, p, i, i, i, i, p]
     lib.color3x3_launch.restype = i

@@ -37,6 +37,12 @@ indexed and pallas render modes (an XLA scatter in the JAX package, not a
 Pallas kernel; torch has no uint32 scatter-min). Its keys are uint32 bit
 patterns carried in int32 tensors (0xFFFFFFFF is -1): :func:`u32_value`
 and :func:`u32_bits` convert, and all arithmetic on them runs in int64.
+It too is one cooperative launch a call, over the same key buffer read as
+u32 words. It takes given keys, or builds the packed ``zq14 << 18 |
+RGB666`` key itself from the masked feed (:func:`scatter_min_packed`), and
+writes the raw minimum bits or their packed decode (three u8 planes and
+the z-buffer, :func:`decode_packed_plain`'s arithmetic). Every variant
+counts under ``scatter_min_u32``.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel, or raises.
@@ -52,6 +58,9 @@ import torch
 from pointcloud_depthfusion_tpu_torch.ops.cuda import _build
 
 INT32_MAX = 0x7FFFFFFF
+FLT_MAX = torch.finfo(torch.float32).max
+#: Depth levels of the packed key's 14-bit zq.
+Z_LEVELS_14 = float((1 << 14) - 1)
 #: Pixel id that routes an entry past every pixel (the JAX package's
 #: ``invalid_pixel_id``).
 INVALID_PIX = 0x40000000
@@ -151,14 +160,71 @@ def zresolve_masked_plain(
     return mrgb, minz if need_zbuf else None
 
 
-def scatter_min_u32_plain(idx: torch.Tensor, key: torch.Tensor, n_slots: int) -> torch.Tensor:
+def scatter_min_u32_plain(idx: torch.Tensor, key: torch.Tensor, n_slots: int,
+                          zparams: Optional[torch.Tensor] = None, planes: bool = False,
+                          need_zbuf: bool = False):
     """Plain version of :func:`scatter_min_u32`: ``scatter_reduce_(amin)``
-    of the int64 key values into a dump-slotted buffer."""
+    of the int64 key values into a dump-slotted buffer, then
+    :func:`decode_packed_plain` when ``planes``."""
     inside = (idx >= 0) & (idx < n_slots)
     slot = torch.where(inside, idx, n_slots).to(torch.int64)
     buf = torch.full((n_slots + 1,), 0xFFFFFFFF, dtype=torch.int64, device=idx.device)
     buf.scatter_reduce_(0, slot, u32_value(key), "amin", include_self=True)
-    return u32_bits(buf[:n_slots])
+    bits = u32_bits(buf[:n_slots])
+    return decode_packed_plain(bits, zparams, need_zbuf) if planes else bits
+
+
+def packed_zparams(z_near, z_far, device, span=None) -> torch.Tensor:
+    """The packed key's (near, span, far) as a (3,) f32 tensor on
+    ``device``. ``span`` defaults to f32(far) - f32(near), the dual frame's
+    (ops/render.py); the rig passes its own, f32(far - near) rounded once
+    from the host's double."""
+    near = torch.as_tensor(z_near, dtype=torch.float32, device=device)
+    far = torch.as_tensor(z_far, dtype=torch.float32, device=device)
+    span = far - near if span is None else torch.as_tensor(span, dtype=torch.float32,
+                                                            device=device)
+    return torch.stack([near, span, far])
+
+
+def packed_keys_plain(z: torch.Tensor, ok: torch.Tensor, rgb24: torch.Tensor,
+                      zparams: torch.Tensor) -> torch.Tensor:
+    """The packed key bits ``zq14 << 18 | RGB666`` of a masked feed, all-ones
+    where ``ok`` is off. zq is clipped to 16382, so a far near-white
+    point's key never equals the all-ones sentinel (render.py:194-199)."""
+    zq = torch.clamp((z - zparams[0]) / zparams[1] * Z_LEVELS_14, 0.0, Z_LEVELS_14 - 1.0
+                     ).to(torch.int64)
+    p24 = rgb24.to(torch.int64)
+    rgb666 = (((p24 >> 18) & 0x3F) << 12) | (((p24 >> 10) & 0x3F) << 6) | ((p24 >> 2) & 0x3F)
+    return u32_bits(torch.where(ok, (zq << 18) | rgb666, 0xFFFFFFFF))
+
+
+def decode_packed_plain(buf: torch.Tensor, zparams: Optional[torch.Tensor],
+                        need_zbuf: bool) -> tuple:
+    """Decode a flat packed (zq14 | RGB666) min-buffer (int32 bits) into
+    (r, g, b) u8 planes and, when ``need_zbuf``, the f32 zbuf (FLT_MAX where
+    uncovered, color black; else None): ``zq / 16383 · (far - near) +
+    near`` with a true division (a 0-d device divisor: a host scalar would
+    make CUDA multiply by its reciprocal)."""
+    covered = buf != U32_EMPTY
+    key = torch.where(covered, u32_value(buf), 0)
+    planes = []
+    for shift in (12, 6, 0):
+        c6 = (key >> shift) & 0x3F
+        planes.append(((c6 << 2) | (c6 >> 4)).to(torch.uint8))
+    if not need_zbuf:
+        return (*planes, None)
+    near, far = zparams[0], zparams[2]
+    z_levels = torch.full((), Z_LEVELS_14, dtype=torch.float32, device=buf.device)
+    zq = (key >> 18).to(torch.float32) / z_levels * (far - near) + near
+    return (*planes, torch.where(covered, zq, FLT_MAX))
+
+
+def scatter_min_packed_plain(idx, z, ok, rgb24, n_slots: int, zparams: torch.Tensor,
+                             planes: bool = True, need_zbuf: bool = False):
+    """Plain version of :func:`scatter_min_packed`: the eager key build, the
+    scatter-min and, when ``planes``, the decode."""
+    return scatter_min_u32_plain(idx, packed_keys_plain(z, ok, rgb24, zparams), n_slots,
+                                 zparams, planes, need_zbuf)
 
 
 # -- kernel wrappers --------------------------------------------------------
@@ -219,23 +285,30 @@ def _key_buffer(device: torch.device, stream: int, n_px: int) -> torch.Tensor:
         return keys
 
 
-def _launch(pix, zbits, ok, rgb, n_px: int, minz, mrgb) -> None:
-    """One launch of the resolve on the current stream of ``pix``'s card."""
-    device = pix.device
+def _run(device: torch.device, n_keys: int, call, what: str) -> None:
+    """``call(keys pointer, stream)``, one launch on the current stream of
+    ``device`` over its key buffer of at least ``n_keys`` int64 words."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    keys = _key_buffer(device, stream, n_px)
-    status = _build.load().zresolve_launch(
-        pix.data_ptr(), zbits.data_ptr(), None if ok is None else ok.data_ptr(),
-        None if rgb is None else rgb.data_ptr(), pix.numel(), ok is not None, rgb is not None,
-        keys.data_ptr(), n_px, None if minz is None else minz.data_ptr(),
-        None if mrgb is None else mrgb.data_ptr(), stream)
+    keys = _key_buffer(device, stream, n_keys)
+    status = call(keys.data_ptr(), stream)
     if status:
-        # A resolve that did not run to its end may leave keys set: the next
+        # A launch that did not run to its end may leave keys set: the next
         # call on this stream allocates and fills a new buffer.
         with _key_lock:
             if _key_buffers.get((device.index, stream)) is keys:
                 del _key_buffers[(device.index, stream)]
-        _build.check(status, "zresolve_launch")
+        _build.check(status, what)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(pix, zbits, ok, rgb, n_px: int, minz, mrgb) -> None:
+    """One launch of the resolve on the current stream of ``pix``'s card."""
+    _run(pix.device, n_px, lambda keys, stream: _build.load().zresolve_launch(
+        pix.data_ptr(), zbits.data_ptr(), _ptr(ok), _ptr(rgb), pix.numel(), ok is not None,
+        rgb is not None, keys, n_px, _ptr(minz), _ptr(mrgb), stream), "zresolve_launch")
 
 
 def _sorted(pix, zbits, rgb, n_px: int, counter: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -326,21 +399,61 @@ def zresolve_masked(
     return mrgb, minz
 
 
-def scatter_min_u32(idx: torch.Tensor, key: torch.Tensor, n_slots: int) -> torch.Tensor:
+def _check_zparams(zparams, device) -> None:
+    if (zparams is None or zparams.dtype != torch.float32 or zparams.shape != (3,)
+            or not zparams.is_contiguous() or zparams.device != device):
+        raise ValueError(f"zparams: expected a contiguous (3,) float32 tensor on {device} "
+                         "(packed_zparams)")
+
+
+def _scatter_min(idx, key, feed, n_slots: int, zparams, planes: bool, need_zbuf: bool):
+    """One launch of the scatter-min: given keys (``key``) or the masked
+    ``feed`` (z, ok, rgb24); the raw bits, or (r, g, b, zbuf or None)."""
+    device = idx.device
+    bits = planes_out = zbuf = None
+    if planes:
+        planes_out = torch.empty((3, n_slots), dtype=torch.uint8, device=device)
+        zbuf = torch.empty(n_slots, dtype=torch.float32, device=device) if need_zbuf else None
+    else:
+        bits = torch.empty(n_slots, dtype=torch.int32, device=device)
+    z, ok, rgb24 = feed if feed is not None else (None, None, None)
+    rgb_ptrs = (None,) * 3 if planes_out is None else tuple(p.data_ptr() for p in planes_out)
+    _run(device, (n_slots + 1) // 2, lambda keys, stream: _build.load().scatter_min_u32_launch(
+        idx.data_ptr(), _ptr(key), _ptr(z), _ptr(ok), _ptr(rgb24), _ptr(zparams), idx.numel(),
+        feed is not None, keys, n_slots, planes, _ptr(bits), *rgb_ptrs, _ptr(zbuf), need_zbuf,
+        stream), "scatter_min_u32_launch")
+    launches["scatter_min_u32"] += 1
+    return bits if not planes else (*planes_out, zbuf)
+
+
+def scatter_min_u32(idx: torch.Tensor, key: torch.Tensor, n_slots: int,
+                    zparams: Optional[torch.Tensor] = None, planes: bool = False,
+                    need_zbuf: bool = False):
     """Per-slot unsigned minimum of uint32 keys: (n_slots,) int32 bits,
     0xFFFFFFFF (-1) where no entry landed. ``idx`` and ``key`` are (N,)
     int32; an entry whose slot lies outside ``[0, n_slots)`` (the dump slot
-    ``n_slots`` among them) is dropped."""
+    ``n_slots`` among them) is dropped. With ``planes`` the keys are packed
+    (zq14 | RGB666) and the result is their decode (r, g, b (n_slots,) u8,
+    zbuf (n_slots,) f32 or None unless ``need_zbuf``) by ``zparams``
+    (:func:`packed_zparams`)."""
     _check_entries((idx, key), ("idx", "key"))
+    if planes and need_zbuf:
+        _check_zparams(zparams, idx.device)
     if not _on_card(idx.device):
-        return scatter_min_u32_plain(idx, key, n_slots)
-    out = torch.empty(n_slots, dtype=torch.int32, device=idx.device)
-    lib = _build.load()
-    stream = torch.cuda.current_stream(idx.device).cuda_stream
-    _build.check(
-        lib.scatter_min_u32_launch(idx.data_ptr(), key.data_ptr(), idx.shape[0],
-                                   out.data_ptr(), n_slots, stream),
-        "scatter_min_u32_launch",
-    )
-    launches["scatter_min_u32"] += 1
-    return out
+        return scatter_min_u32_plain(idx, key, n_slots, zparams, planes, need_zbuf)
+    return _scatter_min(idx, key, None, n_slots, zparams, planes, need_zbuf)
+
+
+def scatter_min_packed(idx: torch.Tensor, z: torch.Tensor, ok: torch.Tensor,
+                       rgb24: torch.Tensor, n_slots: int, zparams: torch.Tensor,
+                       planes: bool = True, need_zbuf: bool = False):
+    """:func:`scatter_min_u32` of the packed keys of a masked feed (the
+    render's (N,) idx int32, z float32, ok bool, rgb24 int32), built in the
+    kernel with ``zparams``' near and span: bit for bit
+    :func:`packed_keys_plain`. Returns the raw bits, or with ``planes``
+    their decode (r, g, b, zbuf or None)."""
+    _check_entries((idx, z, ok, rgb24), _MASKED, _MASKED_DTYPES)
+    _check_zparams(zparams, idx.device)
+    if not _on_card(idx.device):
+        return scatter_min_packed_plain(idx, z, ok, rgb24, n_slots, zparams, planes, need_zbuf)
+    return _scatter_min(idx, None, (z, ok, rgb24), n_slots, zparams, planes, need_zbuf)

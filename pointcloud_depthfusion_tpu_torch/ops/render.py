@@ -7,8 +7,10 @@ pointcloud_depthfusion_tpu/ops/render.py, every render mode.
   empty). Both run the resolve as kernel B1 (image only) or B2 (image and
   z-buffer), ops/cuda/zresolve_cuda.py, on its masked feed: the kernel
   drops the points the projection rejects.
-- ``packed``: one scatter-min of ``zq14 << 18 | RGB666`` keys, decoded by
-  :func:`_decode_packed_planes` alone.
+- ``packed``: one scatter-min of ``zq14 << 18 | RGB666`` keys that the
+  kernel builds from the masked feed and decodes in the same launch
+  (``zresolve_cuda.scatter_min_packed``); :func:`_decode_packed_planes` is
+  its decode on a given buffer.
 - ``indexed``: one scatter-min of ``zq << idx_bits | point_index`` keys,
   then one row gather of the winner's exact RGB888 and f32 depth.
 
@@ -16,7 +18,7 @@ The packed and indexed keys are uint32 in the JAX package. torch has no
 uint32 arithmetic, so a key travels as the bit pattern of an int32 tensor
 (0xFFFFFFFF is -1) and every shift, compare and min on it runs in int64
 (``zresolve_cuda.u32_value`` / ``u32_bits``). The scatter-min is
-``zresolve_cuda.scatter_min_u32``.
+``zresolve_cuda.scatter_min_u32`` / ``scatter_min_packed``.
 
 Op order follows the JAX package: reciprocal then multiply in the planar
 paths, division in the (N, 3) ones.
@@ -44,8 +46,6 @@ FLT_MAX = torch.finfo(torch.float32).max
 # saturates. Clamping to ±2^30 first keeps every in-bounds result exact and
 # every out-of-bounds one out of bounds.
 _CAST_LIMIT = float(1 << 30)
-#: Depth levels of the packed key's 14-bit zq.
-_Z_LEVELS_14 = float((1 << 14) - 1)
 _FLT_MAX_BITS = 0x7F7FFFFF
 
 
@@ -235,20 +235,10 @@ def project_zbuffer(
 def _decode_packed_planes(buf: torch.Tensor, z_near, z_far):
     """Decode a flat packed (zq14|RGB666) min-buffer (int32 bits) into
     (r, g, b) u8 planes and the f32 zbuf (FLT_MAX where uncovered, color
-    black). The one decode of the packed layout: every packed path goes
-    through it."""
-    covered = buf != U32_EMPTY
-    key = torch.where(covered, u32_value(buf), 0)
-    planes = []
-    for shift in (12, 6, 0):
-        c6 = (key >> shift) & 0x3F
-        planes.append(((c6 << 2) | (c6 >> 4)).to(torch.uint8))
-    z_near, z_far = _f32(z_near, buf.device), _f32(z_far, buf.device)
-    # A 0-d device divisor: a host scalar would make CUDA multiply by its
-    # reciprocal.
-    z_levels = torch.full((), _Z_LEVELS_14, dtype=torch.float32, device=buf.device)
-    zq = (key >> 18).to(torch.float32) / z_levels * (z_far - z_near) + z_near
-    return (*planes, torch.where(covered, zq, FLT_MAX))
+    black): the one decode of the packed layout, which the scatter-min's
+    kernel repeats (``zresolve_cuda.decode_packed_plain``)."""
+    return zresolve_cuda.decode_packed_plain(
+        buf, zresolve_cuda.packed_zparams(z_near, z_far, buf.device), True)
 
 
 def unpack_packed_buffer(buf: torch.Tensor, intrinsics: Intrinsics, z_near, z_far):
@@ -258,26 +248,23 @@ def unpack_packed_buffer(buf: torch.Tensor, intrinsics: Intrinsics, z_near, z_fa
     return torch.stack([rp, gp, bp], dim=-1).reshape(h, w, 3), zbuf.reshape(h, w)
 
 
-def _rgb666(r, g, b, rgb24) -> torch.Tensor:
-    """RGB666 key bits (int64) from u8 planes, or from the rgb24 plane
-    (the same bits)."""
+def _rgb24(r, g, b, rgb24) -> torch.Tensor:
+    """The rgb24 plane, packed from u8 planes when not given: the packed
+    key's RGB666 bits are the same either way."""
     if rgb24 is None:
-        return (((r.to(torch.int64) >> 2) << 12) | ((g.to(torch.int64) >> 2) << 6)
-                | (b.to(torch.int64) >> 2))
-    p24 = rgb24.to(torch.int64)
-    return (((p24 >> 18) & 0x3F) << 12) | (((p24 >> 10) & 0x3F) << 6) | ((p24 >> 2) & 0x3F)
+        rgb24 = (r.to(torch.int32) << 16) | (g.to(torch.int32) << 8) | b.to(torch.int32)
+    return rgb24.to(torch.int32)
 
 
-def _packed_render(idx, zc, ok, rgb666, n_px: int, z_near, z_far):
-    """Key, scatter-min and decode: (r, g, b, zbuf) flat planes. zq is
-    clipped to z_levels - 1, so a far near-white point's key never equals
-    the 0xFFFFFFFF sentinel (render.py:194-199)."""
-    z_near, z_far = _f32(z_near, zc.device), _f32(z_far, zc.device)
-    zq = torch.clamp((zc - z_near) / (z_far - z_near) * _Z_LEVELS_14,
-                     0.0, _Z_LEVELS_14 - 1.0).to(torch.int64)
-    key = torch.where(ok, (zq << 18) | rgb666, 0xFFFFFFFF)
-    buf = zresolve_cuda.scatter_min_u32(idx.reshape(-1), u32_bits(key).reshape(-1), n_px)
-    return _decode_packed_planes(buf, z_near, z_far)
+def _packed_render(idx, zc, ok, rgb24, n_px: int, z_near, z_far):
+    """Key, scatter-min and decode in one launch: (r, g, b, zbuf) flat
+    planes. zq is clipped to z_levels - 1, so a far near-white point's key
+    never equals the 0xFFFFFFFF sentinel (render.py:194-199)."""
+    zparams = zresolve_cuda.packed_zparams(z_near, z_far, zc.device)
+    return zresolve_cuda.scatter_min_packed(
+        idx.reshape(-1), zc.to(torch.float32).reshape(-1).contiguous(),
+        ok.reshape(-1).contiguous(), rgb24.reshape(-1).contiguous(), n_px, zparams,
+        planes=True, need_zbuf=True)
 
 
 def project_zbuffer_packed_planar(
@@ -300,7 +287,7 @@ def project_zbuffer_packed_planar(
     dequantized, FLT_MAX where empty)."""
     w, h = intrinsics.width, intrinsics.height
     idx, zc, ok = compute_pixel_indices_planar(x, y, z, valid, intrinsics, mirror)
-    ro, go, bo, zbuf = _packed_render(idx, zc, ok, _rgb666(r, g, b, rgb24), w * h,
+    ro, go, bo, zbuf = _packed_render(idx, zc, ok, _rgb24(r, g, b, rgb24), w * h,
                                       z_near, z_far)
     ro, go, bo = (p.reshape(h, w) for p in (ro, go, bo))
     if return_planes:
@@ -322,8 +309,7 @@ def project_zbuffer_packed(
     col = colors.reshape(-1, 3)
     idx, zc, ok = compute_pixel_indices(points.reshape(-1, 3), valid.reshape(-1),
                                         intrinsics, mirror)
-    rp, gp, bp, zbuf = _packed_render(idx, zc, ok, _rgb666(col[:, 0], col[:, 1], col[:, 2], None),
-                                      w * h, z_near, z_far)
+    rp, gp, bp, zbuf = _packed_render(idx, zc, ok, pack_rgb(col), w * h, z_near, z_far)
     return torch.stack([rp, gp, bp], dim=-1).reshape(h, w, 3), zbuf.reshape(h, w)
 
 
@@ -349,8 +335,15 @@ def indexed_winner_planar(
     """Winner selection of the indexed render: (covered (n_px,) bool,
     winner point index (n_px,) int32, 0 where uncovered). Ties within a
     depth bin go to the lowest point index."""
-    w, h = intrinsics.width, intrinsics.height
-    n_pts = x.numel()
+    idx, zc, ok = compute_pixel_indices_planar(x, y, z, valid, intrinsics, mirror)
+    return indexed_winner(idx, zc, ok, intrinsics.width * intrinsics.height, z_near, z_far)
+
+
+def indexed_winner(idx: torch.Tensor, zc: torch.Tensor, ok: torch.Tensor, n_px: int,
+                   z_near=0.25, z_far=4.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`indexed_winner_planar` of projected points (the masked feed:
+    flat index, z, in-bounds mask), point ids in their flat order."""
+    n_pts = zc.numel()
     idx_bits = _index_bits_for(n_pts)
     zq_bits = 32 - idx_bits
     if zq_bits < 8:
@@ -361,13 +354,12 @@ def indexed_winner_planar(
     # The f32 value of 2^zq_bits - 1, which rounds up to 2^zq_bits for
     # zq_bits >= 25; the integer re-clamp below keeps the shift from wrapping.
     z_levels = float(np.float32((1 << zq_bits) - 1))
-    idx, zc, ok = compute_pixel_indices_planar(x, y, z, valid, intrinsics, mirror)
-    z_near, z_far = _f32(z_near, z.device), _f32(z_far, z.device)
+    z_near, z_far = _f32(z_near, zc.device), _f32(z_far, zc.device)
     zq = torch.clamp((zc - z_near) / (z_far - z_near) * z_levels, 0.0, z_levels).to(torch.int64)
     zq = torch.clamp_max(zq, (1 << zq_bits) - 1)
-    point_id = torch.arange(n_pts, dtype=torch.int64, device=z.device).reshape(zq.shape)
+    point_id = torch.arange(n_pts, dtype=torch.int64, device=zc.device).reshape(zq.shape)
     key = torch.where(ok, (zq << idx_bits) | point_id, 0xFFFFFFFF)
-    buf = zresolve_cuda.scatter_min_u32(idx.reshape(-1), u32_bits(key).reshape(-1), w * h)
+    buf = zresolve_cuda.scatter_min_u32(idx.reshape(-1), u32_bits(key).reshape(-1), n_px)
     covered = buf != U32_EMPTY
     widx = torch.where(covered, u32_value(buf) & ((1 << idx_bits) - 1), 0).to(torch.int32)
     return covered, widx

@@ -20,11 +20,7 @@ import torch
 FUSION_STAGE_FIELDS = [
     "loop",
     "callback",
-    "filter",
-    "deproject",
-    "transform_right",
-    "fuse",
-    "transform",
+    "prep",
     "project",
     "publish",
     "latency",
@@ -33,7 +29,9 @@ FUSION_STAGE_FIELDS = [
     "copy_from_gpu",
     "filter_image",
 ]
-"""The reference fusion profiling schema (fusion_node.hpp:198-200).
+"""The fusion profiling schema: the reference's (fusion_node.hpp:198-200)
+with its filter, deproject, transform_right, fuse and transform stages
+folded into ``prep``, since the port runs them in one launch (kernel B3).
 FusionPipeline.process_profiled fills the device stages; FusionNodeApp
 fills the host ones (callback, publish, latency, diff, copy_to_gpu, loop)."""
 

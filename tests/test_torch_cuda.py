@@ -6,6 +6,9 @@ imports no jax, so on a machine without it run it as
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import re
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,30 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _device_ops(fn, tries=5):
+    """The names of the device operations of one ``fn()``, by
+    torch.profiler. A trace now and then loses some or all of its kernels
+    while the host's records of the launches come back whole (as in
+    chip_smoke.py's ``traced``): the first trace holding one kernel for
+    each host ``cudaLaunch*`` record gives its device events; without one
+    in ``tries``, the last trace's host launches, copies and fills."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for k in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = [e.name for e in events if str(e.device_type).endswith("CUDA")]
+        host = [e.name for e in events if not str(e.device_type).endswith("CUDA")]
+        launches = [n for n in host if re.match(r"cudaLaunch(Cooperative)?Kernel", n)]
+        kernels = [n for n in device if not n.startswith(("Memcpy", "Memset"))]
+        if launches and len(kernels) == len(launches):
+            return device
+        time.sleep(min(0.05 * 2 ** k, 1.0))
+    return launches + [n for n in host if re.match(r"cudaMem(cpy|set)", n)]
 
 
 def _entries(n, n_px, seed, device):
@@ -183,8 +210,6 @@ def test_each_resolve_call_is_one_device_op(cuda):
     """Every resolve wrapper runs one kernel on the card a call (no fill, no
     scratch allocation), counted by torch.profiler, and counts one launch
     under its name."""
-    from torch.profiler import ProfilerActivity, profile
-
     pix, z, rgb = _entries(40_000, 10_000, 3, cuda)
     idx, zf, ok, rgb24 = _feed(40_000, 10_000, 4, cuda)
     s2 = tuple(t.reshape(4, -1) for t in (pix, z, rgb))
@@ -207,12 +232,10 @@ def test_each_resolve_call_is_one_device_op(cuda):
         for name, fn in group.items():
             fn()
             torch.cuda.synchronize()
+            ops = _device_ops(fn)
+            assert len(ops) == 1, (name, ops)
             before = dict(Z.launches)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            ops = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
-            assert len(ops) == 1, (name, [e.name for e in ops])
+            fn()
             assert Z.launches == {**before, name: before[name] + 1}, name
 
 
@@ -559,3 +582,205 @@ def test_rig_on_card_matches_cpu(cuda):
             default = rig_fuse(host, host, cfg, device=cuda)(*[torch.from_numpy(a).to(cuda)
                                                                for a in arrays])
             assert torch.equal(default.cpu(), gpu)
+
+
+def _prep_inputs(n, w, h, seed, distort, roi, offsets):
+    """n cameras' frames and B3's cameras (on the CPU): 0.3-3.5 m of depth
+    with holes, per-camera intrinsics (inverse Brown-Conrady with
+    ``distort``), yaws and shifts, ROIs and pixel offsets."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import Distortion, Intrinsics
+
+    rng = np.random.default_rng(seed)
+    scale = np.asarray([0.001, 0.00025, 0.0005, 0.001][:n], np.float32)
+    depth = (rng.uniform(0.3, 3.5, (n, h, w)) / scale[:, None, None]).astype(np.int32)
+    depth[rng.random((n, h, w)) < 0.05] = 0
+    color = rng.integers(0, 256, (n, h, w, 3)).astype(np.uint8)
+    poses = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    for i in range(n):
+        a = 0.08 * (i - 1)
+        poses[i, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        poses[i, :3, 3] = [0.05 * i, -0.02, 0.1]
+    model = Distortion.INVERSE_BROWN_CONRADY if distort else Distortion.NONE
+    intr = [Intrinsics.create(w, h, fx=0.8 * w + 3 * i, fy=0.8 * w + 2 * i, ppx=w / 2 + i,
+                              ppy=h / 2 - i, model=model,
+                              coeffs=(0.06, -0.02, 0.001, -0.0015, 0.004) if i == 1 else (0.0,) * 5,
+                              device="cpu") for i in range(n)]
+    fused = Intrinsics.create(h + 7, w, fx=0.7 * w, fy=0.7 * w, ppx=(h + 7) // 2, ppy=w // 2,
+                              device="cpu")
+    rois = [(6, 4, w // 2, h // 2), None, (-1, 3, w + 9, -1), None][:n] if roi else None
+    cams = B3.prep_cameras(intr, fused, 0.5, 3.0, True, rois=rois,
+                           pix_offsets=[i * offsets for i in range(n)], device="cpu")
+    return [torch.from_numpy(a) for a in (depth, color, scale, poses)], cams
+
+
+def _cams_on(cams, dev):
+    return B3.prep_cameras([i.to(dev) for i in cams.intrinsics], cams.fused.to(dev),
+                           cams.min_depth, cams.max_depth, cams.mirror, rois=cams.rois,
+                           pix_offsets=cams.pix_offsets, z_near=cams.z_near, z_far=cams.z_far,
+                           device=dev)
+
+
+@pytest.mark.parametrize("n,w,h,distort,roi,offsets,per_stream", [
+    (2, 128, 64, False, False, 0, False), (2, 160, 90, True, True, 0, False),
+    (3, 64, 36, True, True, 5000, True), (4, 37, 5, False, True, 300, False),
+    (1, 1, 1, False, False, 0, False)])
+def test_prep_feed_kernel_matches_plain(cuda, n, w, h, distort, roi, offsets, per_stream):
+    """B3's masked feed bit for bit against its plain version on the card
+    and on the CPU: stacked frames, separate frames, rgb24 color; one launch
+    a call."""
+    host, cams = _prep_inputs(n, w, h, n + w, distort, roi, offsets)
+    args = [t.to(cuda) for t in host]
+    card = _cams_on(cams, cuda)
+    before = B3.launches["fuse_prep"]
+    got = B3.fuse_prep_feed(*args, card, per_stream)
+    assert B3.launches["fuse_prep"] == before + 1
+    want = B3.fuse_prep_feed_plain(*args, card, per_stream)
+    cpu = B3.fuse_prep_feed(*host, cams, per_stream)
+    split = B3.fuse_prep_feed(*([t[i].clone() for i in range(n)] for t in args), card,
+                              per_stream)
+    rgb24 = args[1].to(torch.int32)
+    packed = B3.fuse_prep_feed(args[0], (rgb24[..., 0] << 16) | (rgb24[..., 1] << 8)
+                               | rgb24[..., 2], *args[2:], card, per_stream)
+    torch.cuda.synchronize()
+    for other in (want, cpu, split, packed):
+        assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, other))
+
+
+def test_prep_keys_kernel_matches_plain(cuda):
+    """B3's packed keys for two cameras in one launch, as the pallas mode
+    runs it (two separate framesets): bit for bit its plain version."""
+    host, cams = _prep_inputs(2, 128, 64, 5, False, False, 0)
+    args = [[t[i].to(cuda) for i in range(2)] for t in host]
+    card = _cams_on(cams, cuda)
+    got = B3.fuse_prep_keys(*args, card)
+    want = B3.fuse_prep_keys_plain(*args, card)
+    cpu = B3.fuse_prep_keys(*host, cams)
+    torch.cuda.synchronize()
+    for other in (want, cpu):
+        assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, other))
+
+
+def test_prep_reads_poses_every_call_and_refuses_mixed_devices(cuda):
+    """B3 reads each camera's pose and depth scale from their tensors on
+    every launch (a tensor rewritten in place takes effect), and raises
+    when the frames, the cameras, the poses or the scales lie on different
+    devices."""
+    host, cams = _prep_inputs(2, 128, 64, 9, False, False, 0)
+    args = [t.to(cuda) for t in host]
+    card = _cams_on(cams, cuda)
+    first = B3.fuse_prep_feed(*args, card)
+    args[3][1, 0, 3] += 0.05
+    args[2][0] *= 2.0
+    moved = B3.fuse_prep_feed(*args, card)
+    want = B3.fuse_prep_feed_plain(*args, card)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(moved, want))
+    assert not torch.equal(moved[0], first[0])
+    with pytest.raises(ValueError, match="cameras"):
+        B3.fuse_prep_feed(*host, card)
+    with pytest.raises(ValueError, match="cameras"):
+        B3.fuse_prep_feed(*args, cams)
+    with pytest.raises(ValueError, match="cam_to_virtual"):
+        B3.fuse_prep_feed(*args[:3], host[3], card)
+    with pytest.raises(ValueError, match="depth_scale"):
+        B3.fuse_prep_keys(args[0], args[1], host[2], args[3], card)
+
+
+def _packed_feed(n, n_slots, seed, device, ok_frac=0.9):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-2, n_slots + 3, n).astype(np.int32)
+    z = rng.uniform(0.05, 5.0, n).astype(np.float32)
+    ok = rng.random(n) < ok_frac
+    rgb24 = rng.integers(0, 1 << 24, n).astype(np.int32)
+    return [torch.from_numpy(a).to(device) for a in (idx, z, ok, rgb24)]
+
+
+@pytest.mark.parametrize("ok_frac", [0.9, 0.0])
+@pytest.mark.parametrize("n,n_slots", [(0, 5), (1, 1), (1001, 257), (70_001, 3000),
+                                       (100_000, 64)])
+def test_scatter_min_variants_match_plain(cuda, n, n_slots, ok_frac):
+    """Every scatter-min variant (given keys or the feed, raw or decoded,
+    with or without the z-buffer) bit for bit its plain version, aligned and
+    unaligned; the key buffer all-ones after every call."""
+    feed = _packed_feed(n + 1, n_slots, n + n_slots, cuda, ok_frac)
+    for span in (None, 3.75):
+        zparams = Z.packed_zparams(0.25, 4.0, cuda, span=span)
+        for sl in (slice(0, n), slice(1, n + 1)):
+            f = [t[sl] for t in feed]
+            key = Z.packed_keys_plain(*f[1:], zparams)
+            cases = [
+                (lambda: Z.scatter_min_packed(*f, n_slots, zparams, planes=False),
+                 lambda: Z.scatter_min_packed_plain(*f, n_slots, zparams, planes=False)),
+                (lambda: Z.scatter_min_u32(f[0], key, n_slots),
+                 lambda: Z.scatter_min_u32_plain(f[0], key, n_slots))]
+            for need_zbuf in (True, False):
+                cases += [
+                    (lambda nz=need_zbuf: Z.scatter_min_packed(*f, n_slots, zparams, True, nz),
+                     lambda nz=need_zbuf: Z.scatter_min_packed_plain(*f, n_slots, zparams, True,
+                                                                     nz)),
+                    (lambda nz=need_zbuf: Z.scatter_min_u32(f[0], key, n_slots, zparams, True, nz),
+                     lambda nz=need_zbuf: Z.scatter_min_u32_plain(f[0], key, n_slots, zparams,
+                                                                  True, nz))]
+            for kernel, plain in cases:
+                before = Z.launches["scatter_min_u32"]
+                got, want = kernel(), plain()
+                assert Z.launches["scatter_min_u32"] == before + 1
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                for a, b in zip(got, want):
+                    assert (a is None and b is None) or torch.equal(a, b)
+                assert _keys_clean()
+
+
+def test_scatter_min_failed_launch_drops_the_key_buffer(cuda, monkeypatch):
+    """As the resolve's: a scatter-min launch that reports an error raises
+    and drops its stream's key buffer; the next call is right."""
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import _build
+
+    idx, z, ok, rgb24 = _packed_feed(20_000, 5000, 9, cuda)
+    zparams = Z.packed_zparams(0.25, 4.0, cuda)
+    Z.scatter_min_packed(idx, z, ok, rgb24, 5000, zparams)
+    slot = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    dirty = Z._key_buffers[slot]
+    lib = _build.load()
+    real = lib.scatter_min_u32_launch
+    calls = []
+
+    def fail_once(*args):
+        calls.append(args)
+        if len(calls) == 1:
+            dirty.zero_()
+            return 700  # cudaErrorIllegalAddress
+        return real(*args)
+
+    monkeypatch.setattr(lib, "scatter_min_u32_launch", fail_once)
+    before = dict(Z.launches)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        Z.scatter_min_packed(idx, z, ok, rgb24, 5000, zparams)
+    assert slot not in Z._key_buffers and Z.launches == before
+    got = Z.scatter_min_packed(idx, z, ok, rgb24, 5000, zparams, need_zbuf=True)
+    want = Z.scatter_min_packed_plain(idx, z, ok, rgb24, 5000, zparams, need_zbuf=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert Z._key_buffers[slot] is not dirty and len(calls) == 2
+    assert _keys_clean()
+
+
+def test_prep_and_scatter_min_are_one_device_op_each(cuda):
+    """B3 for every camera, and each scatter-min variant, run one kernel on
+    the card a call, counted by torch.profiler."""
+    host, cams = _prep_inputs(3, 160, 90, 2, True, True, 0)
+    args, card = [t.to(cuda) for t in host], _cams_on(cams, cuda)
+    feed = _packed_feed(40_000, 10_000, 4, cuda)
+    zparams = Z.packed_zparams(0.25, 4.0, cuda)
+    key = Z.packed_keys_plain(*feed[1:], zparams)
+    calls = {"fuse_prep_feed": lambda: B3.fuse_prep_feed(*args, card),
+             "scatter_min_packed": lambda: Z.scatter_min_packed(*feed, 10_000, zparams,
+                                                                need_zbuf=True),
+             "scatter_min_u32 planes": lambda: Z.scatter_min_u32(feed[0], key, 10_000, zparams,
+                                                                 planes=True),
+             "scatter_min_u32": lambda: Z.scatter_min_u32(feed[0], key, 10_000)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        ops = _device_ops(fn)
+        assert len(ops) == 1, (name, ops)

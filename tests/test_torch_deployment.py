@@ -83,8 +83,7 @@ def test_process_profiled_equals_process(mode):
     prof, laps, host = pipe.process_profiled(*fs)
     assert torch.equal(prof.image, res.image)
     np.testing.assert_array_equal(host, res.image.numpy())
-    assert set(laps) == {"filter", "deproject", "transform_right", "transform", "fuse",
-                         "project", "filter_image", "copy_from_gpu"}
+    assert set(laps) == {"prep", "project", "filter_image", "copy_from_gpu"}
     assert set(laps) <= set(FUSION_STAGE_FIELDS) and all(v >= 0 for v in laps.values())
 
 
