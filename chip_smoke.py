@@ -31,9 +31,13 @@ before and read just after:
         ``rig_fuse``, and ``RigFusionNodeApp.run`` (4 cameras, inline
         calibration sweeps) against the CPU, and against the rig's truth at
         the deployment's 424×240;
-  [13]  kernel B6 against its plain version, ``filter_depth`` with
-        morphology (4 B6 launches a call) and the other depth filters
-        against the CPU, the dual deployment ``launch.run_deployment``
+  [13]  kernel B6 against its plain versions (1, 2 and 4 passes a launch;
+        the fused ``filter_depth`` with morphology, ROIs on every edge),
+        ``filter_depth`` with morphology against the CPU (1 B6 launch a
+        call), the spatial filter's row-scan kernel against its plain
+        version (holes_fill 0-5, magnitude 1-3, disparity; 2 launches a
+        magnitude), the other depth filters against the CPU, the dual
+        deployment ``launch.run_deployment``
         (CameraNode → DeviceFeeder → FusionNodeApp with RegistrationNodeApp
         ticks → ImageNode) on the card and against the CPU, and
         ``FusionNodeApp.run`` over prerendered frames, timed.
@@ -80,6 +84,8 @@ REPLACES = {
     "fuse_prep": "pointcloud_depthfusion_tpu/ops/pallas/fuse_prep_pallas.py:43",
     "zresolve_sorted_streams": "pointcloud_depthfusion_tpu/ops/pallas/zresolve_pallas.py:500",
     "morph_plane": "pointcloud_depthfusion_tpu/ops/pallas/filters_pallas.py:158",
+    # Not a Pallas kernel: the lax.scan of the spatial filter's sweeps.
+    "spatial_filter": "pointcloud_depthfusion_tpu/ops/filters.py:489",
     # Not a Pallas kernel: the XLA scatter-min of the packed, indexed and
     # pallas modes, which torch cannot compute on uint32 keys.
     "scatter_min_u32": "pointcloud_depthfusion_tpu/ops/render.py:218",
@@ -95,6 +101,7 @@ SOURCES = {
     "fuse_prep": "pointcloud_depthfusion_tpu_torch/csrc/fuse_prep.cu",
     "zresolve_sorted_streams": "pointcloud_depthfusion_tpu_torch/csrc/zresolve.cu",
     "morph_plane": "pointcloud_depthfusion_tpu_torch/csrc/morph.cu",
+    "spatial_filter": "pointcloud_depthfusion_tpu_torch/csrc/spatial.cu",
     "scatter_min_u32": "pointcloud_depthfusion_tpu_torch/csrc/zresolve.cu",
 }
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory and
@@ -185,6 +192,17 @@ NODE_LOADED_GUESS = (0.5, 0.01)
 # DEPLOY_CMP_FRAMES frames with registration off and every DEPLOY_CMP_EVERY;
 # the viewer saves every DEPLOY_SAVE_EVERY-th frame. FusionNodeApp.run over
 # prerendered frames is timed over REPLAY_FRAMES frames.
+# Phase 13, B6: the pass sequences of one launch, and the small planes
+# (H, W) beside the scenes'; the spatial filter's crops (W, H) of the
+# 848×480 scene's depth, held against its plain version. The spatial
+# filter's dependency chain: dependent f32 operations a step (multiply,
+# add, add, floor, select), their latency, and the H100 SXM's boost clock.
+MORPH_PASSES = ((False,), (True,), (False, True), (True, False), (False, True, True, False))
+MORPH_SMALL = ((1, 1), (1, 848), (480, 1), (33, 31))
+SPATIAL_SHAPES = ((64, 48), (37, 23), (97, 1), (1, 61))
+CHAIN_OPS = 5
+F32_LATENCY_CYCLES = 4
+SM_CLOCK_HZ = 1.98e9
 DEPLOY_SIZES = ((848, 480), (1280, 720))
 DEPLOY_FRAMES = 30
 DEPLOY_EVERY = 15
@@ -341,11 +359,11 @@ def bound(n_bytes: float, n_ops: float) -> tuple:
 
 def _counters() -> tuple:
     from pointcloud_depthfusion_tpu_torch.ops.cuda import (
-        filters_cuda, fuse_prep_cuda, morph_cuda, segsum_cuda, zresolve_cuda,
+        filters_cuda, fuse_prep_cuda, morph_cuda, segsum_cuda, spatial_cuda, zresolve_cuda,
     )
 
     return (zresolve_cuda.launches, filters_cuda.launches, segsum_cuda.launches,
-            fuse_prep_cuda.launches, morph_cuda.launches)
+            fuse_prep_cuda.launches, morph_cuda.launches, spatial_cuda.launches)
 
 
 def reset_launches() -> None:
@@ -1358,14 +1376,14 @@ def bare_scatter(feed: tuple, key, n_slots: int, zparams, planes: bool, need_zbu
 
 
 def time_one(name: str, label: str, kernel, plain, bare, b_ms: float, b_by: str,
-             library, card: str) -> tuple:
+             library, card: str, phase: str = "6") -> tuple:
     """A kernel's wrapper (CUDA events around 20 calls, in turns with its
     plain version), its device time by the profiler and its bare launch:
     (ms, plain_ms, library_ms, bound_ms, bound_by), logged."""
     k, p, each = turns(kernel, plain)
     dk, parts = device_time(kernel)
     bare_ms = cuda_ms(bare, 50)
-    log(f"[6] {name} {label}: wrapper {k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}), device "
+    log(f"[{phase}] {name} {label}: wrapper {k:.5f} ms ({each[0]:.5f}, {each[1]:.5f}), device "
         f"{device_text(dk, parts)}, bare launch {bare_ms:.5f} ms, plain {p:.5f} ms "
         f"({each[2]:.5f}, {each[3]:.5f}), "
         f"library {'none' if library is None else f'{library:.5f} ms (scatter_reduce_ amin)'}, "
@@ -2247,32 +2265,87 @@ def morph_masks(scene: Scene, g: torch.Generator) -> dict:
     }
 
 
+def fused_box(w: int, h: int, roi) -> Optional[tuple]:
+    """``roi`` as ``filter_depth`` hands it to B6's fused call: the clamped
+    (x0, y0, x1, y1), ends exclusive, or None."""
+    from pointcloud_depthfusion_tpu_torch.ops import filters as F
+
+    if roi is None:
+        return None
+    x0, y0, rw, rh = F._clamped_roi(h, w, roi)
+    return x0, y0, x0 + rw, y0 + rh
+
+
+def morph_rois(w: int, h: int) -> tuple:
+    """B6's ROIs at w×h: none, an inner box, boxes on the left, top, right
+    (clipped there) and bottom edges, one pixel, and the negative box (the
+    whole image)."""
+    return (None, (40, 20, w - 120, h - 60), (0, h // 4, w // 3, h // 2),
+            (w // 3, 0, w // 2, h // 4), (w - 50, h // 3, w, h // 3), (w // 4, h - 30, w // 2, 30),
+            (w // 2, h // 2, 1, 1), (-1, -1, -1, -1))
+
+
 def phase_morph(scenes, errs: dict) -> tuple:
-    """(a) B6 bit-exact to its plain version on the card; (b)
-    ``filter_depth(use_morphology=True)`` on the card bit-identical to the
-    CPU, with the launch counts of (b) alone. Returns (B6's launches in
-    (b), the number of card calls)."""
+    """(a) B6 bit-exact to its plain versions on the card: 1, 2 and 4
+    passes in one launch against the chain of single passes, on the scenes'
+    masks and on planes of 1×1, 1×W, H×1 and 33×31 (u8 planes and bool
+    masks); the fused ``filter_depth(use_morphology=True)`` against its
+    plain version on the scenes' depth with every ROI of
+    :func:`morph_rois` and on the small planes. (b) That call on the card
+    bit-identical to the CPU with one B6 launch a call, the launch counts
+    of (b) alone (:func:`time_morph` traces a call for its device ops).
+    Returns (B6's launches in (b), the number of card calls)."""
     from pointcloud_depthfusion_tpu_torch.ops import filters as F
     from pointcloud_depthfusion_tpu_torch.ops.cuda import morph_cuda as B6
 
+    def check(label, got, want):
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        errs["morph_plane"] = max(errs["morph_plane"], err)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"B6 differs from its plain version on {label}: {err}")
+
     g = torch.Generator(device=DEVICE).manual_seed(13)
-    for scene in scenes:
-        for kind, m in morph_masks(scene, g).items():
-            for dilate in (False, True):
-                got, want = B6.morph_plane(m, dilate), B6.morph_plane_plain(m, dilate)
-                torch.cuda.synchronize()
-                err = max_abs_err(got, want)
-                errs["morph_plane"] = max(errs["morph_plane"], err)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"B6 differs from plain on {kind} {scene.w}x{scene.h} "
-                                         f"dilate={dilate}: {err}")
-        log(f"[13a] morph_plane {scene.w}x{scene.h}: erosion and dilation bit-exact on "
-            f"random/depth>0/depth in 0.5-3 m/zeros/ones/lines")
+    masks = {f"{kind} {s.w}x{s.h}": m for s in scenes for kind, m in morph_masks(s, g).items()}
+    for h, w in MORPH_SMALL:
+        masks[f"random {w}x{h}"] = torch.randint(0, 2, (h, w), generator=g, device=DEVICE,
+                                                 dtype=torch.uint8)
+        masks[f"u8 values {w}x{h}"] = torch.randint(0, 256, (h, w), generator=g, device=DEVICE,
+                                                    dtype=torch.uint8)
+    for label, m in masks.items():
+        for passes in MORPH_PASSES:
+            want = B6.morph_passes_plain(m, passes)
+            check(f"{label} passes {passes}", (B6.morph_passes(m, passes),), (want,))
+            if not label.startswith("u8 values"):
+                check(f"{label} as a bool mask, passes {passes}",
+                      (B6.mask_passes(m.bool(), passes),), (want.view(torch.bool),))
+    log(f"[13a] morph_passes and, on the 0/1 planes as bool masks, mask_passes (erode, dilate, "
+        f"open, close, open+close) in one launch each, bit-exact to the chain of single passes "
+        f"on {len(masks)} planes ({', '.join(masks)})")
+    planes = []
+    for s in scenes:
+        for f in (s.frames[0][0], s.frames[1][1]):
+            planes.append((f"{s.w}x{s.h}", torch.from_numpy(f.depth.astype(np.int32)).to(DEVICE),
+                           torch.tensor(f.depth_scale, device=DEVICE), morph_rois(s.w, s.h)))
+    for h, w in MORPH_SMALL:
+        d = torch.randint(0, 3500, (h, w), generator=g, device=DEVICE, dtype=torch.int32)
+        planes.append((f"{w}x{h}", d, torch.tensor(0.001, device=DEVICE),
+                       (None, (w // 2, h // 2, 1, 1))))
+    lo, hi = torch.tensor(0.5, device=DEVICE), torch.tensor(3.0, device=DEVICE)
+    for size, depth, scale, rois in planes:
+        h, w = depth.shape
+        for roi in rois:
+            check(f"filter_depth {size} roi={roi}",
+                  F.filter_depth(depth, scale, lo, hi, roi, use_morphology=True),
+                  B6.filter_depth_open_close_plain(depth, scale, lo, hi, fused_box(w, h, roi)))
+    log(f"[13a] filter_depth(use_morphology=True), one launch, bit-exact to its plain version on "
+        f"{len(planes)} depth planes ({', '.join(p[0] for p in planes)}) with ROIs on every edge "
+        f"and of one pixel")
     reset_launches()
     calls = 0
-    filter_ms = {}
     for scene in scenes:
-        for roi in (None, (40, 20, scene.w - 120, scene.h - 60)):
+        rois = (None, (40, 20, scene.w - 120, scene.h - 60), (scene.w // 2, scene.h // 2, 1, 1))
+        for roi in rois:
             for k, pair in enumerate(scene.frames):
                 for f in pair:
                     before = read_launches()["morph_plane"]
@@ -2289,26 +2362,62 @@ def phase_morph(scenes, errs: dict) -> tuple:
                     (dg, vg), (dc, vc) = out[DEVICE], out["cpu"]
                     same = torch.equal(dg.cpu(), dc) and torch.equal(vg.cpu(), vc)
                     closed_holes = int((vc & (dc == 0)).sum())
-                    if not same or n != 4:
+                    if not same or n != 1:
                         raise AssertionError(f"filter_depth(use_morphology=True) "
                                              f"{scene.w}x{scene.h} roi={roi}: card==CPU {same}, "
                                              f"{n} B6 launches")
             log(f"[13b] filter_depth(use_morphology=True) dual {scene.w}x{scene.h} roi={roi}: "
-                f"card bit-identical to the CPU on {2 * len(scene.frames)} frames, 4 B6 launches "
+                f"card bit-identical to the CPU on {2 * len(scene.frames)} frames, 1 B6 launch "
                 f"each; valid {float(vc.float().mean()):.4f}, closed-in pixels with depth 0 "
                 f"{closed_holes} (the JAX order, reproduced)")
     launches = read_launches()
-    log(f"[13b] launches {launches}, expected morph_plane {4 * calls} and no other")
-    if launches["morph_plane"] != 4 * calls or sum(launches.values()) != 4 * calls:
+    log(f"[13b] launches {launches}, expected morph_plane {calls} and no other")
+    if launches["morph_plane"] != calls or sum(launches.values()) != calls:
         raise AssertionError(f"[13b] launch counts {launches}")
     return launches["morph_plane"], calls
 
 
+def device_ops_of_one_call(label: str, fn, launches: int) -> None:
+    """Fails unless one traced ``fn()`` makes exactly ``launches`` kernel
+    launches and no copy or fill: no device op but the kernel's (an eager
+    op is a launch of its own)."""
+    fn()
+    trace = traced(fn, 1)
+    log(f"[13] {label}: one call makes {trace.launches} kernel launches and {trace.copy_calls} "
+        f"copies or fills (host records; device: {trace.counts()})")
+    if DEVICE == "cuda" and (trace.launches != launches or trace.copy_calls):
+        raise AssertionError(f"{label}: {trace.launches} launches and {trace.copy_calls} copies "
+                             f"a call, expected {launches} and 0")
+
+
+def bare_filter_depth(depth, scale, lo, hi, box):
+    """One launch of B6's fused filter_depth on prebuilt outputs, with no
+    checks: the launch alone, as the wrapper makes it."""
+    import ctypes
+
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import _build
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import morph_cuda as B6
+
+    h, w = depth.shape
+    d_out = torch.empty((h, w), dtype=torch.int32, device=depth.device)
+    m_out = torch.empty((h, w), dtype=torch.bool, device=depth.device)
+    bits = sum(1 << p for p, dilate in enumerate(B6.OPEN_CLOSE) if dilate)
+    zero = ctypes.c_float(0.0)
+    x0, y0, x1, y1 = box or (0, 0, w, h)
+    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
+    call = (depth.data_ptr(), B6.DEPTH_KINDS[depth.dtype], d_out.data_ptr(), m_out.data_ptr(), h,
+            w, len(B6.OPEN_CLOSE), bits, scale.data_ptr(), zero, lo.data_ptr(), zero, hi.data_ptr(),
+            zero, x0, y0, x1, y1, stream)
+    return lambda: lib.filter_depth_morph_launch(*call)
+
+
 def time_morph(scenes, card: str) -> tuple:
-    """B6 against its plain version and the nearest library composition
-    (max_pool2d over 3×5 and 5×3, then maximum: no one PyTorch call has
-    the 21-point element), and filter_depth(use_morphology=True), at each
-    size. Returns (B6's row at the last size, {size: filter_depth ms})."""
+    """B6 at each size: the fused ``filter_depth(use_morphology=True)``
+    (wrapper, device and bare launch, against its plain version on the
+    card), and one pass against its plain version and the nearest library
+    composition (max_pool2d over 3×5 and 5×3, then maximum: no one PyTorch
+    call has the 21-point element, nor the fused call). Returns (the fused
+    call's row at the last size, {size: filter_depth ms})."""
     import torch.nn.functional as NF
 
     from pointcloud_depthfusion_tpu_torch.ops import filters as F
@@ -2318,6 +2427,22 @@ def time_morph(scenes, card: str) -> tuple:
     for scene in scenes:
         f = scene.frames[0][0]
         depth = torch.from_numpy(f.depth.astype(np.int32)).to(DEVICE)
+        n = depth.numel()
+        scale, lo, hi = (torch.tensor(v, device=DEVICE) for v in (f.depth_scale, 0.5, 3.0))
+        roi = (40, 20, scene.w - 120, scene.h - 60)
+        box = fused_box(scene.w, scene.h, roi)
+        size = f"{scene.w}x{scene.h}"
+        device_ops_of_one_call(f"filter_depth(use_morphology=True) {size}",
+                               lambda: F.filter_depth(depth, scale, lo, hi, roi,
+                                                      use_morphology=True), 1)
+        # 4 B of depth in, 4 B of depth and 1 B of mask out a pixel; about 20
+        # min/max a pass and 8 operations for the window a pixel.
+        b_ms, b_by = bound(9 * n, (20 * len(B6.OPEN_CLOSE) + 8) * n)
+        row = time_one("morph_plane", f"filter_depth(use_morphology=True) {size}",
+                       lambda: F.filter_depth(depth, scale, lo, hi, roi, use_morphology=True),
+                       lambda: B6.filter_depth_open_close_plain(depth, scale, lo, hi, box),
+                       bare_filter_depth(depth, scale, lo, hi, box), b_ms, b_by, None, card, "13")
+        filter_ms[size] = row[0]
         mask = (depth > 0).to(torch.uint8)
         try:
             NF.max_pool2d(mask[None, None], (3, 5), 1, (1, 2))
@@ -2333,19 +2458,126 @@ def time_morph(scenes, card: str) -> tuple:
         lib_ms = cuda_ms(library, 50)
         k, p, each = turns(lambda: B6.morph_plane(mask, True),
                            lambda: B6.morph_plane_plain(mask, True), iters=50)
+        dk, parts = device_time(lambda: B6.morph_plane(mask, True))
         # 1 B in and 1 B out per pixel; 20 min/max per pixel.
-        b_ms, b_by = bound(2 * mask.numel(), 20 * mask.numel())
-        scale, lo, hi = (torch.tensor(v, device=DEVICE) for v in (f.depth_scale, 0.5, 3.0))
-        fd = cuda_ms(lambda: F.filter_depth(depth, scale, lo, hi, use_morphology=True), 20)
-        plain_fd = cuda_ms(lambda: F.filter_depth(depth, scale, lo, hi), 20)
-        filter_ms[f"{scene.w}x{scene.h}"] = fd
-        log(f"[13] morph_plane at one {scene.w}x{scene.h} u8 mask: kernel {k:.5f} ms "
-            f"({each[0]:.5f}, {each[1]:.5f}), plain {p:.5f} ms ({each[2]:.5f}, {each[3]:.5f}), "
-            f"library {lib_ms:.5f} ms (3 calls: max_pool2d 3x5 and 5x3, maximum; on {lib_dtype}; "
-            f"equal to B6's dilation: {same}), bound {b_ms:.5f} ms by {b_by}; "
-            f"filter_depth(use_morphology=True) {fd:.5f} ms, without {plain_fd:.5f} ms on {card}")
-        row = (k, p, lib_ms, b_ms, b_by)
+        one_ms, one_by = bound(2 * n, 20 * n)
+        log(f"[13] morph_plane, one pass at one {size} u8 mask: kernel {k:.5f} ms "
+            f"({each[0]:.5f}, {each[1]:.5f}), device {device_text(dk, parts)}, plain {p:.5f} ms "
+            f"({each[2]:.5f}, {each[3]:.5f}), library {lib_ms:.5f} ms (3 calls: max_pool2d 3x5 "
+            f"and 5x3, maximum; on {lib_dtype}; equal to B6's dilation: {same}), bound "
+            f"{one_ms:.5f} ms by {one_by} on {card}")
     return row, filter_ms
+
+
+def phase_spatial(scene: Scene, errs: dict) -> int:
+    """The spatial filter's row-scan kernel bit-exact to its plain version
+    on the card: holes_fill 0-5 and magnitude 1-3 on crops of the scene's
+    depth of odd and one-pixel shapes (int32, and uint16 and int64 for some),
+    and on their f32 disparity; ``2 · magnitude`` launches a call and no
+    other device op. Returns the launches of these calls."""
+    from pointcloud_depthfusion_tpu_torch.ops import filters as F
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import spatial_cuda as S
+
+    depth = torch.from_numpy(scene.frames[0][0].depth.astype(np.int32)).to(DEVICE)
+    fx = 631.0 * scene.w / 848.0
+    planes = {f"{w}x{h}": depth[:h, :w].contiguous() for w, h in SPATIAL_SHAPES}
+    calls = []
+    for label, d in planes.items():
+        for holes_fill in range(6):
+            for magnitude in (1, 2, 3):
+                calls.append((f"{label} holes_fill {holes_fill} magnitude {magnitude}", d,
+                              (0.55, 20.0, magnitude, holes_fill)))
+        calls.append((f"{label} uint16", d.to(torch.uint16), (0.55, 20.0, 2, 3)))
+        calls.append((f"{label} int64", d.to(torch.int64), (0.55, 20.0, 2, 5)))
+        for holes_fill in (0, 3):
+            calls.append((f"{label} disparity holes_fill {holes_fill}",
+                          F.depth_to_disparity(d, 0.001, fx), (0.5, 8.0, 2, holes_fill)))
+    reset_launches()
+    expected = 0
+    for label, d, args in calls:
+        got = S.spatial_filter(d, *args)
+        want = S.spatial_filter_plain(d, *args)
+        torch.cuda.synchronize()
+        expected += 2 * args[2]
+        err = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
+        errs["spatial_filter"] = max(errs["spatial_filter"], err)
+        if got.dtype != d.dtype or not torch.equal(got, want):
+            raise AssertionError(f"spatial kernel differs from its plain version on {label}: {err}")
+    launches = read_launches()
+    log(f"[13c] spatial_filter kernel bit-exact to its plain version in {len(calls)} calls "
+        f"({', '.join(planes)}: holes_fill 0-5 x magnitude 1-3, uint16, int64, disparity); "
+        f"launches {launches}, expected spatial_filter {expected} (2 a magnitude) and no other")
+    if launches["spatial_filter"] != expected or sum(launches.values()) != expected:
+        raise AssertionError(f"[13c] launch counts {launches}")
+    for magnitude in (1, 2, 3):
+        device_ops_of_one_call(f"spatial_filter {scene.w}x{scene.h} magnitude {magnitude}",
+                               lambda: S.spatial_filter(depth, 0.55, 20.0, magnitude, 3),
+                               2 * magnitude)
+    return expected
+
+
+def bare_spatial(depth, alpha, delta, magnitude, holes_fill):
+    """One call of the spatial kernels' C entry on prebuilt outputs, with no
+    checks."""
+    import ctypes
+
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import _build
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import spatial_cuda as S
+
+    h, w = depth.shape
+    out = torch.empty_like(depth)
+    floating = depth.dtype == torch.float32
+    work = out if floating else torch.empty((h, w), dtype=torch.float32, device=depth.device)
+    kind = S.KINDS[depth.dtype]
+    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
+    call = (depth.data_ptr(), kind, work.data_ptr(), out.data_ptr(), kind, h, w, magnitude,
+            ctypes.c_float(alpha), ctypes.c_float(1.0 - alpha), ctypes.c_float(delta),
+            int(not floating), S.spatial_holes_radius(holes_fill, w), stream)
+    return lambda: lib.spatial_launch(*call)
+
+
+def time_spatial(scene: Scene, card: str) -> tuple:
+    """The spatial filter at the scene's size, in the three settings phase
+    13c compares with the CPU: the kernel bit-exact to its plain version on
+    the card, its wrapper (CUDA events, 20 calls, in turns with the plain
+    version's single calls: the plain loop takes ~1 s), device time and
+    bare launch, beside both bounds: bytes and operations, and the
+    dependency chain. Returns the holes_fill 0 row."""
+    from pointcloud_depthfusion_tpu_torch.ops import filters as F
+    from pointcloud_depthfusion_tpu_torch.ops.cuda import spatial_cuda as S
+
+    depth = torch.from_numpy(scene.frames[0][0].depth.astype(np.int32)).to(DEVICE)
+    disp = F.depth_to_disparity(depth, 0.001, 631.0 * scene.w / 848.0)
+    h, w = depth.shape
+    n = depth.numel()
+    row = None
+    for label, d, args in (("holes_fill 0", depth, (0.55, 20.0, 2, 0)),
+                           ("holes_fill 3", depth, (0.55, 20.0, 2, 3)),
+                           ("disparity", disp, (0.5, 8.0, 1, 0))):
+        kernel = lambda d=d, args=args: S.spatial_filter(d, *args)  # noqa: E731
+        plain = lambda d=d, args=args: S.spatial_filter_plain(d, *args)  # noqa: E731
+        if not torch.equal(kernel(), plain()):
+            raise AssertionError(f"spatial kernel differs from its plain version at {w}x{h} "
+                                 f"{label}")
+        p1 = cuda_ms(plain, 1, 0)
+        k1, k2 = cuda_ms(kernel, 20), cuda_ms(kernel, 20)
+        p2 = cuda_ms(plain, 1, 0)
+        k, p = (k1 + k2) / 2, (p1 + p2) / 2
+        dk, parts = device_time(kernel, 10)
+        bare_ms = cuda_ms(bare_spatial(d, *args), 20)
+        magnitude = args[2]
+        # 4 B in and 4 B out a pixel; about 10 f32 operations a pixel a sweep.
+        b_ms, b_by = bound(8 * n, 40 * magnitude * n)
+        steps = magnitude * 2 * ((w - 1) + (h - 1))
+        chain_ms = steps * CHAIN_OPS * F32_LATENCY_CYCLES / SM_CLOCK_HZ * 1e3
+        log(f"[13] spatial_filter {w}x{h} {label} (magnitude {magnitude}): wrapper {k:.5f} ms "
+            f"({k1:.5f}, {k2:.5f}), device {device_text(dk, parts)}, bare launch {bare_ms:.5f} ms, "
+            f"plain {p:.5f} ms ({p1:.5f}, {p2:.5f}), library none, bound {b_ms:.5f} ms by {b_by}, "
+            f"dependency chain {chain_ms:.5f} ms ({steps} steps x {CHAIN_OPS} dependent f32 ops "
+            f"x {F32_LATENCY_CYCLES} cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz) on {card}")
+        if row is None:
+            row = (k, p, None, b_ms, b_by)
+    return row
 
 
 def phase_depth_filters(scene: Scene, card: str) -> dict:
@@ -2387,7 +2619,7 @@ def phase_depth_filters(scene: Scene, card: str) -> dict:
         want = fn(*inputs["cpu"])
         diff = (got.cpu().to(torch.float64) - want.to(torch.float64)).abs()
         share = float((diff > 0).float().mean()) if diff.numel() else 0.0
-        slow = name.startswith(("spatial", "bilateral"))
+        slow = name == "bilateral_filter_depth"
         ms = cuda_ms(lambda: fn(*inputs[DEVICE]), 1 if slow else 10, 1 if slow else 3)
         out[name] = ms
         log(f"[13c] {name} {scene.w}x{scene.h}: card vs CPU max|d|={float(diff.max()):.6g} on "
@@ -2615,10 +2847,11 @@ def phase_node_timing(scenes, tmp: str, card: str) -> tuple:
 
 def phase_filters_and_deployment(scenes, card: str, errs: dict) -> tuple:
     """Phase 13. Returns (launches of each kernel on its main paths here,
-    B6's timing row, {metric: value})."""
+    B6's and the spatial filter's timing rows, {metric: value})."""
     import tempfile
 
     morph_launches, calls = phase_morph(scenes, errs)
+    spatial_launches = phase_spatial(scenes[0], errs)
     filter_ms = phase_depth_filters(scenes[0], card)
     with tempfile.TemporaryDirectory() as tmp:
         reset_launches()
@@ -2634,11 +2867,13 @@ def phase_filters_and_deployment(scenes, card: str, errs: dict) -> tuple:
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != expected {expected}")
     launches["morph_plane"] = morph_launches
-    row, fd_ms = time_morph(scenes, card)
+    launches["spatial_filter"] = spatial_launches
+    rows = {"morph_plane": None, "spatial_filter": time_spatial(scenes[0], card)}
+    rows["morph_plane"], fd_ms = time_morph(scenes, card)
     metrics.update(node_metrics)
     log(f"[13] summary filters ms {json.dumps(filter_ms)} filter_depth+morphology ms "
         f"{json.dumps(fd_ms)} deployment {json.dumps(metrics)} on {card}")
-    return launches, row, metrics
+    return launches, rows, metrics
 
 
 def main() -> int:
@@ -2741,8 +2976,8 @@ def main() -> int:
 
     # [13] B6, filter_depth with morphology, the other depth filters, and the
     # dual deployment; the launch counts cover exactly its main paths.
-    filt_launches, morph_timing, _ = phase_filters_and_deployment((scene_848, scene_720), card,
-                                                                  errs)
+    filt_launches, filter_timing, _ = phase_filters_and_deployment((scene_848, scene_720), card,
+                                                                   errs)
     log(f"[13] done at {time.perf_counter() - t_start:.1f} s")
 
     # [6], [9] timing
@@ -2773,7 +3008,7 @@ def main() -> int:
     # No one PyTorch call computes both halves of B5 (the sums and the
     # representative); index_add_'s time for the sums alone is logged above.
     timing = {**kernel_ms, "segsum_sorted": (k, p, None, b_ms, b_by),
-              "zresolve_sorted_streams": streams_timing, "morph_plane": morph_timing}
+              "zresolve_sorted_streams": streams_timing, **filter_timing}
     log(card)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

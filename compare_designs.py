@@ -3,7 +3,9 @@
 the one-camera designs (before the all-cameras B3 and the one-launch
 scatter-min) and the current ones share, on one NVIDIA GPU.
 
-    python3 compare_designs.py
+    python3 compare_designs.py            # the prep and the scatter-min
+    python3 compare_designs.py --filters  # filter_depth(use_morphology=True)
+                                          # and spatial_filter
 
 Meant for a comparison on one card: unpack an older tree with
 ``git archive`` into a git-ignored directory, copy this file and
@@ -14,8 +16,12 @@ resolve as the one-camera designs ran it, ``scatter_min_u32`` on given
 keys, and the packed render of a frame's planes, each as wrapper ms (CUDA
 events), device ms by the profiler and a bare launch; warm dual ``tiled``,
 ``pallas`` and ``packed`` frames and the profiled rig frames with their
-device ops; and ms/frame of every mode. No ceiling applies. It exits
-non-zero without a CUDA device.
+device ops; and ms/frame of every mode. No ceiling applies. With
+``--filters`` it times instead the two depth filters that B6's one-launch
+design and the spatial filter's row-scan kernel replaced the eager chains
+of (four B6 launches and eager ops; ~10 eager ops a step), through the
+``ops.filters`` API both trees have. It exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -126,6 +132,35 @@ def time_api_designs(scene, card: str) -> None:
     torch.cuda.synchronize()
 
 
+def time_filter_designs(scenes, card: str) -> None:
+    """``filter_depth(use_morphology=True)`` at each scene's size (wrapper
+    ms by CUDA events around 20 calls, device ms by the profiler, and the
+    kernel launches and copies of one traced call) and ``spatial_filter``
+    at the first (wrapper ms, 5 calls: the eager loop takes ~1 s a call)."""
+    from pointcloud_depthfusion_tpu_torch.ops import filters as F
+
+    for scene in scenes:
+        f = scene.frames[0][0]
+        depth = torch.from_numpy(f.depth.astype("int32")).to(S.DEVICE)
+        scale, lo, hi = (torch.tensor(v, device=S.DEVICE) for v in (f.depth_scale, 0.5, 3.0))
+        roi = (40, 20, scene.w - 120, scene.h - 60)
+
+        def fd():
+            return F.filter_depth(depth, scale, lo, hi, roi, use_morphology=True)
+
+        ms = S.cuda_ms(fd, 20)
+        dk, parts = S.device_time(fd)
+        trace = S.traced(fd, 1)
+        S.log(f"[13] filter_depth(use_morphology=True) {scene.w}x{scene.h}: wrapper {ms:.5f} ms, "
+              f"device {S.device_text(dk, parts)}, one call {trace.launches} kernel launches and "
+              f"{trace.copy_calls} copies or fills on {card}")
+    depth = torch.from_numpy(scenes[0].frames[0][0].depth.astype("int32")).to(S.DEVICE)
+    for holes_fill in (0, 3):
+        ms = S.cuda_ms(lambda: F.spatial_filter(depth, holes_fill=holes_fill), 5, 1)
+        S.log(f"[13] spatial_filter {scenes[0].w}x{scenes[0].h} holes_fill {holes_fill}: wrapper "
+              f"{ms:.5f} ms on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("compare_designs: torch.cuda.is_available() is false; nothing to run",
@@ -137,6 +172,9 @@ def main() -> int:
     S.log(card)
     _build.load()
     scenes = (S.build_scene(848, 480), S.build_scene(1280, 720))
+    if "--filters" in sys.argv[1:]:
+        time_filter_designs(scenes, card)
+        return 0
     for scene in scenes:
         time_api_designs(scene, card)
         for mode in ("tiled", "pallas", "packed"):

@@ -104,7 +104,7 @@ def _compile(nvcc: str, srcs: List[pathlib.Path], target: pathlib.Path) -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.zresolve_launch.argtypes = [p, p, p, p, i, i, i, p, i, p, p, p]
     lib.zresolve_launch.restype = i
     lib.scatter_min_u32_launch.argtypes = [p, p, p, p, p, p, i, i, p, i, i, p, p, p, p, p, i, p]
@@ -114,8 +114,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fuse_prep_launch.restype = i
     lib.color3x3_launch.argtypes = [p, p, p, p, p, i, i, p, i, i, i, i, p]
     lib.color3x3_launch.restype = i
-    lib.morph_launch.argtypes = [p, p, i, i, i, p]
+    lib.morph_launch.argtypes = [p, p, i, i, i, i, p]
     lib.morph_launch.restype = i
+    lib.mask_morph_launch.argtypes = [p, p, i, i, i, i, p]
+    lib.mask_morph_launch.restype = i
+    lib.filter_depth_morph_launch.argtypes = [p, i, p, p, i, i, i, i, p, f, p, f, p, f, i, i, i,
+                                              i, p]
+    lib.filter_depth_morph_launch.restype = i
+    lib.spatial_launch.argtypes = [p, i, p, p, i, i, i, i, f, f, f, i, i, p]
+    lib.spatial_launch.restype = i
     lib.segsum_scratch_ints.argtypes = [i, i]
     lib.segsum_scratch_ints.restype = ctypes.c_longlong
     lib.segsum_launch.argtypes = [p, p, i, i, i, p, p, p, p]

@@ -17,6 +17,7 @@ from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda as B4
 from pointcloud_depthfusion_tpu_torch.ops.cuda import fuse_prep_cuda as B3
 from pointcloud_depthfusion_tpu_torch.ops.cuda import morph_cuda as B6
 from pointcloud_depthfusion_tpu_torch.ops.cuda import segsum_cuda as B5
+from pointcloud_depthfusion_tpu_torch.ops.cuda import spatial_cuda as S
 from pointcloud_depthfusion_tpu_torch.ops.cuda import zresolve_cuda as Z
 
 pytestmark = pytest.mark.gpu
@@ -316,26 +317,96 @@ def test_morph_kernel_matches_plain(cuda, h, w):
         B6.morph_plane(torch.zeros((8, 6), dtype=torch.uint8, device=cuda).t(), True)
 
 
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 9), (9, 1), (33, 31), (131, 300)])
+def test_morph_passes_one_launch_match_plain(cuda, h, w):
+    """One, two and four passes in one launch: bit-exact to the chain of
+    single passes, on 0/1 and on any u8 values, and on bool masks (the mask
+    format)."""
+    g = torch.Generator(device=cuda).manual_seed(h * 7 + w)
+    masks = [torch.randint(0, 2, (h, w), generator=g, device=cuda, dtype=torch.uint8),
+             torch.randint(0, 256, (h, w), generator=g, device=cuda, dtype=torch.uint8)]
+    passes = ((False,), (True,), (False, True), (True, False), (True, True, False, False),
+              B6.OPEN_CLOSE)
+    before = B6.launches["morph_plane"]
+    for m in masks:
+        for p in passes:
+            assert torch.equal(B6.morph_passes(m, p), B6.morph_passes_plain(m, p)), p
+    for p in passes:
+        want = B6.morph_passes_plain(masks[0], p).view(torch.bool)
+        assert torch.equal(B6.mask_passes(masks[0].bool(), p), want), p
+    torch.cuda.synchronize()
+    assert B6.launches["morph_plane"] == before + (len(masks) + 1) * len(passes)
+
+
+FUSED_ROIS = (None, (10, 5, 100, 80), (0, 0, 160, 120), (0, 40, 30, 30), (50, 0, 40, 20),
+              (140, 30, 40, 50), (20, 100, 50, 40), (77, 61, 1, 1))
+
+
+def _fused_box(roi, h, w):
+    """The fused call's (x0, y0, x1, y1) of ``roi``, as filter_depth clamps it."""
+    from pointcloud_depthfusion_tpu_torch.ops import filters as F
+
+    if roi is None:
+        return None
+    x0, y0, rw, rh = F._clamped_roi(h, w, roi)
+    return x0, y0, x0 + rw, y0 + rh
+
+
 def test_filter_depth_with_morphology_on_card_matches_cpu(cuda):
-    """Four B6 launches per call; bit-identical to the CPU's plain run."""
+    """One B6 launch per call, in each depth dtype the kernel takes, with
+    ROIs on each edge and of one pixel: bit-identical to the CPU's plain
+    run and to the fused call's plain version on the card."""
     from pointcloud_depthfusion_tpu_torch.ops import filters as F
 
     rng = np.random.default_rng(5)
     depth = rng.integers(300, 3300, (120, 160)).astype(np.int32)
     depth[rng.random(depth.shape) < 0.02] = 0
-    for roi in (None, (10, 5, 100, 80)):
-        out = {}
-        for dev in ("cpu", cuda):
+    for dtype in B6.DEPTH_KINDS:
+        # u8 depth on a 16× coarser scale, so that the window still cuts.
+        d, s = (depth // 16, 0.016) if dtype == torch.uint8 else (depth, 0.001)
+        host = torch.from_numpy(d).to(dtype)
+        card = host.to(cuda)
+        scale = torch.tensor(s, device=cuda)
+        for roi in FUSED_ROIS:
             before = B6.launches["morph_plane"]
-            out[str(dev)] = F.filter_depth(torch.from_numpy(depth).to(dev),
-                                           torch.tensor(0.001, device=dev),
-                                           torch.tensor(0.5, device=dev),
-                                           torch.tensor(3.0, device=dev), roi,
-                                           use_morphology=True)
+            got = F.filter_depth(card, scale, torch.tensor(0.5, device=cuda),
+                                 torch.tensor(3.0, device=cuda), roi, use_morphology=True)
             torch.cuda.synchronize()
-            assert B6.launches["morph_plane"] - before == (4 if dev == cuda else 0)
-        for a, b in zip(out["cuda"], out["cpu"]):
-            assert torch.equal(a.cpu(), b)
+            assert B6.launches["morph_plane"] - before == 1
+            cpu = F.filter_depth(host, torch.tensor(s), 0.5, 3.0, roi, use_morphology=True)
+            plain = B6.filter_depth_open_close_plain(card, scale, 0.5, 3.0,
+                                                     _fused_box(roi, 120, 160))
+            for a, b, c in zip(got, cpu, plain):
+                assert torch.equal(a.cpu(), b) and torch.equal(a, c), (roi, dtype)
+
+
+# The spatial filter's row-scan kernel: bit-exact to its plain version,
+# 2 launches an iteration.
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 37), (29, 1), (23, 41), (96, 160)])
+def test_spatial_kernel_matches_plain(cuda, h, w):
+    rng = np.random.default_rng(h * 1000 + w)
+    d = rng.integers(1000, 1040, (h, w)) + 400 * (np.arange(w) >= w // 2)
+    d[rng.random((h, w)) < 0.25] = 0
+    d[h // 3, 1:max(w - 2, 1)] = 0
+    for dtype in (torch.int32, torch.uint16, torch.int64):
+        t = torch.from_numpy(d).to(dtype=dtype, device=cuda)
+        for holes_fill in range(6):
+            for magnitude in (0, 1, 2, 3):
+                before = S.launches["spatial_filter"]
+                got = S.spatial_filter(t, 0.55, 20.0, magnitude, holes_fill)
+                torch.cuda.synchronize()
+                assert S.launches["spatial_filter"] - before == max(2 * magnitude, 1)
+                want = S.spatial_filter_plain(t, 0.55, 20.0, magnitude, holes_fill)
+                assert got.dtype == dtype and torch.equal(got, want), (dtype, holes_fill, magnitude)
+    disp = torch.from_numpy(d.astype(np.float32) / 37.0).to(cuda)
+    for holes_fill in (0, 2):
+        got = S.spatial_filter(disp, 0.5, 8.0, 2, holes_fill)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, S.spatial_filter_plain(disp, 0.5, 8.0, 2, holes_fill))
+    with pytest.raises(ValueError, match="contiguous"):
+        S.spatial_filter(torch.zeros((8, 6), dtype=torch.int32, device=cuda).t())
+    with pytest.raises(ValueError, match="expected one of"):
+        S.spatial_filter(torch.zeros((8, 6), dtype=torch.float64, device=cuda))
 
 
 # Segment sums (B5): the kernel adds each slot's entries in entry order, so

@@ -107,17 +107,17 @@ def test_cpu_rig_never_builds_kernels(monkeypatch):
 
 def test_cpu_deployment_never_builds_kernels(monkeypatch, tmp_path):
     """``run_deployment`` on the CPU (dual tier with registration ticks,
-    the morphology filter, and the rig tier) runs every kernel's plain
-    version and counts no launch."""
+    the morphology and spatial filters, and the rig tier) runs every
+    kernel's plain version and counts no launch."""
     from pointcloud_depthfusion_tpu_torch.nodes.launch import run_deployment
     from pointcloud_depthfusion_tpu_torch.ops import filters
     from pointcloud_depthfusion_tpu_torch.ops.cuda import (
-        filters_cuda, morph_cuda, segsum_cuda, zresolve_cuda,
+        filters_cuda, morph_cuda, segsum_cuda, spatial_cuda, zresolve_cuda,
     )
 
     monkeypatch.setattr(_build, "load", _refuse_build)
     counters = (zresolve_cuda.launches, filters_cuda.launches, segsum_cuda.launches,
-                morph_cuda.launches)
+                morph_cuda.launches, spatial_cuda.launches)
     before = tuple(dict(c) for c in counters)
     cams = [{"name": n, "source": "synthetic", "seed": s, "pose": p}
             for n, s, p in (("camera_left", 10, "left"), ("camera_right", 20, "right"))]
@@ -131,6 +131,7 @@ def test_cpu_deployment_never_builds_kernels(monkeypatch, tmp_path):
     assert rig["frames"] == 2
     depth = torch.from_numpy(np.random.default_rng(0).integers(0, 3000, (24, 32)).astype(np.int32))
     filters.filter_depth(depth, 0.001, 0.5, 3.0, use_morphology=True)
+    filters.spatial_filter(depth, holes_fill=3)
     assert counters == before
 
 
@@ -159,7 +160,7 @@ def test_build_flags_and_sources():
     import pointcloud_depthfusion_tpu_torch.core.geometry  # noqa: F401  (turns TF32 off)
 
     assert [p.name for p in _build.sources()] == [
-        "filters3x3.cu", "fuse_prep.cu", "morph.cu", "segsum.cu", "zresolve.cu"]
+        "filters3x3.cu", "fuse_prep.cu", "morph.cu", "segsum.cu", "spatial.cu", "zresolve.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fPIC" in flags
     assert "-shared" in _build.LINK_FLAGS
