@@ -36,11 +36,14 @@ before and read just after:
         ``filter_depth`` with morphology against the CPU (1 B6 launch a
         call), the spatial filter's row-scan kernel against its plain
         version (holes_fill 0-5, magnitude 1-3, disparity; 2 launches a
-        magnitude), the other depth filters against the CPU, the dual
-        deployment ``launch.run_deployment``
+        magnitude), the other depth filters against the CPU, the native
+        host runtime (the C++ renderer and host filters, built by g++, held
+        bit for bit against their numpy versions and timed), the dual
+        deployment ``launch.run_deployment`` with native synthetic cameras
         (CameraNode → DeviceFeeder → FusionNodeApp with RegistrationNodeApp
-        ticks → ImageNode) on the card and against the CPU, and
-        ``FusionNodeApp.run`` over prerendered frames, timed.
+        ticks → ImageNode) on the card and against the CPU, the same
+        deployment replayed from recordings made by ``CameraNode.main``,
+        and ``FusionNodeApp.run`` over prerendered frames, timed.
 
 It times frames, ticks and kernels with CUDA events and a host clock ending
 in ``synchronize()`` (the resolve, B3 and the scatter-min also by the
@@ -210,6 +213,18 @@ DEPLOY_CMP_FRAMES = 3
 DEPLOY_CMP_EVERY = 2
 DEPLOY_SAVE_EVERY = 8
 REPLAY_FRAMES = 30
+# Phase 13e, the native host runtime and recorded sources: the C++ renderer
+# against the numpy SyntheticSource for one camera frame at each of
+# RENDER_SIZES (RENDER_ITERS native calls, RENDER_NUMPY_ITERS numpy ones,
+# host clock); the native spatial and decimation filters against their
+# numpy versions on a FILTER_SIZE frame (FILTER_ITERS / FILTER_NUMPY_ITERS);
+# then both cameras recorded by CameraNode.main at RECORD_SIZE for
+# DEPLOY_FRAMES frames and replayed through run_deployment.
+RENDER_SIZES = ((848, 480), (1280, 720))
+RENDER_ITERS, RENDER_NUMPY_ITERS = 10, 2
+FILTER_SIZE = (848, 480)
+FILTER_ITERS, FILTER_NUMPY_ITERS = 10, 2
+RECORD_SIZE = (1280, 720)
 # Phase 3: the image kernel's (H, W): the fused frames' (vertical) and
 # landscape shapes at both sizes, odd widths, and images under 3×3; its
 # modes by launch counter.
@@ -300,6 +315,16 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def host_clock_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call of host code ``fn`` (perf_counter)."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -2656,17 +2681,24 @@ def deployment_manifest(w: int, h: int, frames: int, every: int, out_dir: str,
 
 def run_deployment_recorded(manifest: dict, dev) -> tuple:
     """``run_deployment`` on ``dev``, recording every fused image the viewer
-    receives: (summary, [(stamp, image)], wall s ending in synchronize)."""
+    receives: (summary, [(stamp, image)], wall s ending in synchronize,
+    [class name of each camera's source])."""
     from pointcloud_depthfusion_tpu_torch.nodes import image_node, launch
 
-    seen = []
-    orig = image_node.ImageNode.__call__
+    seen, sources = [], []
+    orig, orig_build = image_node.ImageNode.__call__, launch._build_camera
 
     def record(self, image, ts):
         seen.append((ts, np.array(image)))
         orig(self, image, ts)
 
+    def build(*args):
+        cam = orig_build(*args)
+        sources.append(type(cam.source).__name__)
+        return cam
+
     image_node.ImageNode.__call__ = record
+    launch._build_camera = build
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2675,7 +2707,8 @@ def run_deployment_recorded(manifest: dict, dev) -> tuple:
         wall = time.perf_counter() - t0
     finally:
         image_node.ImageNode.__call__ = orig
-    return summary, seen, wall
+        launch._build_camera = orig_build
+    return summary, seen, wall, sources
 
 
 def deployment_expected(summary: dict) -> dict:
@@ -2686,6 +2719,15 @@ def deployment_expected(summary: dict) -> dict:
                                                     "registration_grid_rebuilds"))
     return {"fuse_prep": frames, "zresolve_sorted_entries": frames, "gauss3x3_image": frames,
             "segsum_sorted": 4 * rebuilds + 2 * (ticks - rebuilds)}
+
+
+def fusion_keep_all(tmp: str) -> str:
+    """A fusion override config with the QoS lifespan off: the fusion tier
+    keeps every pair, so the CPU's slower frames drop none."""
+    path = os.path.join(tmp, "fusion_keep_all.yaml")
+    with open(path, "w") as fh:
+        fh.write("fusion_node:\n  qos: {lifespan_s: 0}\n")
+    return path
 
 
 def phase_deployment(tmp: str, card: str) -> tuple:
@@ -2703,11 +2745,7 @@ def phase_deployment(tmp: str, card: str) -> tuple:
     is off (the rig's 10° toe-in fails it, as in phase 8), so the compared
     transform is the solver's and not the identity kept by a discard.
     Returns (expected launches, {metric: value})."""
-    import os
-
-    fusion_yaml = os.path.join(tmp, "fusion_keep_all.yaml")
-    with open(fusion_yaml, "w") as fh:
-        fh.write("fusion_node:\n  qos: {lifespan_s: 0}\n")
+    fusion_yaml = fusion_keep_all(tmp)
     reg_yaml = os.path.join(tmp, "registration_no_angle_gate.yaml")
     with open(reg_yaml, "w") as fh:
         fh.write("registration_node:\n  angle_gate: false\n")
@@ -2725,14 +2763,17 @@ def phase_deployment(tmp: str, card: str) -> tuple:
     for w, h in DEPLOY_SIZES:
         size = f"{w}x{h}"
         out_dir = os.path.join(tmp, f"live_{size}")
-        summary, seen, wall = run_deployment_recorded(
+        summary, seen, wall, sources = run_deployment_recorded(
             deployment_manifest(w, h, DEPLOY_FRAMES, DEPLOY_EVERY, out_dir), DEVICE)
         add(summary)
         pngs = sorted(os.listdir(out_dir))
         coverage = min(float(img.any(-1).mean()) for _, img in seen)
         log(f"[13d] run_deployment dual {size} on the card: {json.dumps(summary)}; "
-            f"{len(seen)} frames in {wall:.3f} s ({len(seen) / wall:.3f} frames/s live, the "
-            f"numpy renderer in the loop), min coverage {coverage:.4f}, {len(pngs)} PNGs on {card}")
+            f"{len(seen)} frames in {wall:.3f} s ({len(seen) / wall:.3f} frames/s live, "
+            f"cameras {'/'.join(sources)}), min coverage {coverage:.4f}, {len(pngs)} PNGs on "
+            f"{card}")
+        if sources != ["NativeSyntheticSource"] * 2:
+            raise AssertionError(f"deployment {size}: camera sources {sources}")
         if (summary["frames"] != DEPLOY_FRAMES or len(seen) != DEPLOY_FRAMES
                 or summary["fused_shape"] != [w, h, 3] or coverage < 0.5
                 or summary["registration_ticks"] != -(-DEPLOY_FRAMES // DEPLOY_EVERY)
@@ -2780,7 +2821,7 @@ def phase_deployment(tmp: str, card: str) -> tuple:
 
 
 def phase_node_timing(scenes, tmp: str, card: str) -> tuple:
-    """(e) FusionNodeApp.run over prerendered frames replayed through
+    """(f) FusionNodeApp.run over prerendered frames replayed through
     CameraNodes, REPLAY_FRAMES frames at each size: frames/s with
     async_readback on and off, then one profiled pass (process_profiled)
     with its stage laps and upload_ms. Returns (expected launches,
@@ -2827,7 +2868,7 @@ def phase_node_timing(scenes, tmp: str, card: str) -> tuple:
                 raise AssertionError(f"node {size} {mode}: {done} frames")
             fps = done / wall
             metrics[f"node_{size}_{mode.replace(' ', '_')}_fps"] = fps
-            log(f"[13e] FusionNodeApp.run {size} {mode}: {done} frames in {wall:.3f} s "
+            log(f"[13f] FusionNodeApp.run {size} {mode}: {done} frames in {wall:.3f} s "
                 f"({fps:.3f} frames/s), upload_ms mean {np.mean(uploads):.4f} min "
                 f"{np.min(uploads):.4f} max {np.max(uploads):.4f} on {card}")
             metrics[f"node_{size}_{mode.replace(' ', '_')}_upload_ms_mean"] = float(np.mean(uploads))
@@ -2836,13 +2877,172 @@ def phase_node_timing(scenes, tmp: str, card: str) -> tuple:
                     rows = [line.strip().split(",") for line in fh]
                 head, vals = rows[0], np.asarray(rows[2:], np.float64)  # skip the first frame
                 laps = {k: float(v) for k, v in zip(head, vals.mean(0))}
-                log(f"[13e] process_profiled {size}, mean of frames 2-{len(rows) - 1} (ms): "
+                log(f"[13f] process_profiled {size}, mean of frames 2-{len(rows) - 1} (ms): "
                     + " ".join(f"{k}={v:.4f}" for k, v in laps.items()) + f" on {card}")
                 metrics[f"node_{size}_laps_ms"] = laps
     # Each fused frame, profiled or not: B3, B2 and one B4 image (tiled with
     # the z-buffer).
     return ({"fuse_prep": frames, "zresolve_sorted_entries": frames, "gauss3x3_image": frames},
             metrics)
+
+
+def phase_host_runtime(card: str) -> dict:
+    """(e, a-b) The native host runtime: built by g++ from the checkout's
+    ``csrc/host/pdf_runtime.cpp`` (a failed build raises with the
+    compiler's output, so the run fails); the renderer timed against the
+    numpy SyntheticSource for one camera frame at each of RENDER_SIZES,
+    with the deployment's noise and holes, and held bit for bit against it
+    on noise-free frames; the spatial filter (u16 depth, with and without
+    holes_fill, and f32 disparity) and the decimation filter timed against
+    their numpy versions on a FILTER_SIZE frame and held bit for bit against
+    them. Host times on the card machine's CPU. Returns {metric: value}."""
+    from pointcloud_depthfusion_tpu_torch import runtime
+    from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
+    from pointcloud_depthfusion_tpu_torch.io.feeder import NativeSyntheticSource, SyntheticSource
+    from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene, two_camera_rig
+    from pointcloud_depthfusion_tpu_torch.nodes.camera_node import CameraNode
+    from pointcloud_depthfusion_tpu_torch.ops import host_filters as HF
+    from pointcloud_depthfusion_tpu_torch.runtime import bindings
+    from pointcloud_depthfusion_tpu_torch.utils.factory import camera_config
+
+    t0 = time.perf_counter()
+    lib = runtime.load_library()
+    log(f"[13e] host runtime {os.path.relpath(lib._name, REPO)} loaded in "
+        f"{time.perf_counter() - t0:.3f} s ({'built' if bindings.build_log else 'no'} compiler "
+        f"output; g++ {' '.join(bindings.CXX_FLAGS)}), {os.cpu_count()} host CPUs")
+    for line in bindings.build_log.splitlines()[-5:]:
+        log(f"[13e] g++: {line}")
+    if not runtime.is_available():
+        raise AssertionError("the native host runtime is not available")
+    metrics = {}
+    wl, _ = two_camera_rig(baseline=0.6, toe_in_deg=10.0)
+    for w, h in RENDER_SIZES:
+        fx = 631.0 * w / 848.0
+        intr = Intrinsics.create(w, h, fx=fx, fy=fx, ppx=w / 2, ppy=h / 2, device="cpu")
+        clean = dict(depth_noise_std=0.0, hole_fraction=0.0, seed=1)
+        a = NativeSyntheticSource(SyntheticScene(), intr, wl, **clean).next_frame()
+        b = SyntheticSource(SyntheticScene(), intr, wl, **clean).next_frame()
+        same = np.array_equal(a.depth, b.depth) and np.array_equal(a.color, b.color)
+        native = host_clock_ms(
+            NativeSyntheticSource(SyntheticScene(), intr, wl, seed=10).next_frame, RENDER_ITERS)
+        plain = host_clock_ms(SyntheticSource(SyntheticScene(), intr, wl, seed=10).next_frame,
+                              RENDER_NUMPY_ITERS, warmup=0)
+        # One camera's whole capture as the deployment runs it: the native
+        # render and the host filters its config turns on (the temporal one).
+        node = CameraNode("camera_left", NativeSyntheticSource(SyntheticScene(), intr, wl,
+                                                               seed=10))
+        node.attach_config(camera_config("camera_left"))
+        capture = host_clock_ms(node.capture, RENDER_ITERS)
+        log(f"[13e] render one camera frame {w}x{h}: native {native:.4f} ms, numpy {plain:.4f} "
+            f"ms ({plain / native:.1f}x); noise-free frames bit-identical: {same}; "
+            f"CameraNode.capture (native render, temporal filter) {capture:.4f} ms (host CPU of "
+            f"the machine of {card})")
+        if not same:
+            raise AssertionError(f"native render {w}x{h} differs from the numpy renderer")
+        metrics[f"render_{w}x{h}_ms"] = {"native": native, "numpy": plain, "capture": capture}
+    w, h = FILTER_SIZE
+    fx = 631.0 * w / 848.0
+    intr = Intrinsics.create(w, h, fx=fx, fy=fx, ppx=w / 2, ppy=h / 2, device="cpu")
+    depth = NativeSyntheticSource(SyntheticScene(), intr, wl, seed=10).next_frame().depth
+    disp = HF.depth_to_disparity_np(depth, 0.001, fx)
+    cases = {
+        "spatial u16": (lambda: runtime.spatial_filter_native(depth),
+                        lambda: HF._spatial_filter_numpy(depth)),
+        "spatial u16 holes_fill 3": (lambda: runtime.spatial_filter_native(depth, holes_fill=3),
+                                     lambda: HF._spatial_filter_numpy(depth, holes_fill=3)),
+        "spatial f32 disparity": (lambda: runtime.spatial_filter_native(disp, 0.5, 8.0, 1),
+                                  lambda: HF._spatial_filter_numpy(disp, 0.5, 8.0, 1)),
+        "decimation 2": (lambda: runtime.decimation_filter_native(depth, 2),
+                         lambda: HF._decimation_filter_numpy(depth, 2)),
+    }
+    for name, (native_fn, plain_fn) in cases.items():
+        got, want = native_fn(), plain_fn()
+        same = got.dtype == want.dtype and np.array_equal(got, want)
+        native = host_clock_ms(native_fn, FILTER_ITERS)
+        plain = host_clock_ms(plain_fn, FILTER_NUMPY_ITERS, warmup=0)
+        log(f"[13e] {name} {w}x{h}: native {native:.4f} ms, numpy {plain:.4f} ms "
+            f"({plain / native:.1f}x); bit-identical: {same} (host CPU of the machine of {card})")
+        if not same:
+            raise AssertionError(f"native {name} differs from its numpy version")
+        metrics[f"{name.replace(' ', '_')}_{w}x{h}_ms"] = {"native": native, "numpy": plain}
+    return metrics
+
+
+def phase_recorded(tmp: str, card: str) -> tuple:
+    """(e, c-d) Both cameras recorded by the port's CameraNode.main at
+    RECORD_SIZE for DEPLOY_FRAMES frames as ``.npz``, and the left one again
+    as ``.pdfe`` (its frames decoded equal to the ``.npz`` ones); then
+    run_deployment with the two recordings as sources: on the card for
+    DEPLOY_FRAMES frames with registration every DEPLOY_EVERY (every frame
+    fused, coverage at least 0.5, a finite fitness), and with registration
+    off on the card and the CPU for DEPLOY_CMP_FRAMES frames, the fused
+    images within PIXEL_BUDGET. Returns (expected launches, {metric:
+    value})."""
+    from pointcloud_depthfusion_tpu_torch.io.encoded import read_encoded_stream
+    from pointcloud_depthfusion_tpu_torch.io.recorded import RecordedSource
+    from pointcloud_depthfusion_tpu_torch.nodes import camera_node
+
+    w, h = RECORD_SIZE
+    size = f"{w}x{h}"
+    args = ["--width", str(w), "--height", str(h), "--frames", str(DEPLOY_FRAMES)]
+    paths = {}
+    for name, ext in (("camera_left", "npz"), ("camera_right", "npz"), ("camera_left", "pdfe")):
+        path = paths[name, ext] = os.path.join(tmp, f"{name}.{ext}")
+        t0 = time.perf_counter()
+        camera_node.main(["--name", name, *args, "--out", path])
+        log(f"[13e] CameraNode.main --name {name} {size} --frames {DEPLOY_FRAMES} --out "
+            f"{name}.{ext}: {time.perf_counter() - t0:.3f} s, {os.path.getsize(path)} bytes")
+    t0 = time.perf_counter()
+    rec = RecordedSource(paths["camera_left", "npz"])
+    load_s = time.perf_counter() - t0
+    log(f"[13e] RecordedSource(camera_left.npz) loads {len(rec)} frames in {load_s:.3f} s "
+        "(inside each replayed run_deployment's wall, once a camera)")
+    decoded = read_encoded_stream(paths["camera_left", "pdfe"])
+    if len(rec) != DEPLOY_FRAMES or len(decoded) != DEPLOY_FRAMES:
+        raise AssertionError(f"recordings hold {len(rec)} and {len(decoded)} frames")
+    for got in decoded:
+        want = rec.next_frame()
+        if not (np.array_equal(got.depth, want.depth) and np.array_equal(got.color, want.color)
+                and (got.timestamp, got.depth_scale) == (want.timestamp, want.depth_scale)):
+            raise AssertionError("the .pdfe frames differ from the .npz recording's")
+    cams = [{"name": n, "source": paths[n, "npz"]} for n in ("camera_left", "camera_right")]
+
+    def manifest(frames, every, out_dir, fusion=None):
+        m = deployment_manifest(w, h, frames, every, os.path.join(tmp, out_dir),
+                                {"fusion": fusion} if fusion else None)
+        m["cameras"] = cams
+        return m
+
+    summary, seen, wall, sources = run_deployment_recorded(
+        manifest(DEPLOY_FRAMES, DEPLOY_EVERY, "replay"), DEVICE)
+    expected = deployment_expected(summary)
+    coverage = min(float(img.any(-1).mean()) for _, img in seen)
+    fps = len(seen) / wall
+    log(f"[13e] run_deployment dual {size} replayed on the card: {json.dumps(summary)}; "
+        f"{len(seen)} frames in {wall:.3f} s ({fps:.3f} frames/s replayed, cameras "
+        f"{'/'.join(sources)}), min coverage {coverage:.4f} on {card}")
+    if (sources != ["RecordedSource"] * 2 or summary["frames"] != DEPLOY_FRAMES
+            or len(seen) != DEPLOY_FRAMES or summary["fused_shape"] != [w, h, 3]
+            or coverage < 0.5 or summary["registration_ticks"] != -(-DEPLOY_FRAMES // DEPLOY_EVERY)
+            or not np.isfinite(summary["registration_fitness"])):
+        raise AssertionError(f"replayed deployment: {summary}, {len(seen)} frames, {sources}")
+    runs = {dev: run_deployment_recorded(manifest(DEPLOY_CMP_FRAMES, 0, f"replay_off_{dev}",
+                                                  fusion_keep_all(tmp)), dev)
+            for dev in (DEVICE, "cpu")}
+    for k, v in deployment_expected(runs[DEVICE][0]).items():
+        expected[k] += v
+    worst = 0.0
+    for (tg, ig), (tc, ic) in zip(runs[DEVICE][1], runs["cpu"][1]):
+        if tg != tc:
+            raise AssertionError(f"replayed deployment: card frame {tg} vs CPU frame {tc}")
+        worst = max(worst, float((ig != ic).any(-1).mean()))
+    log(f"[13e] replayed, registration off, {DEPLOY_CMP_FRAMES} frames, card vs CPU: fused "
+        f"images differ on at most {worst:.6g} of pixels (budget {PIXEL_BUDGET})")
+    if len(runs[DEVICE][1]) != DEPLOY_CMP_FRAMES or worst > PIXEL_BUDGET:
+        raise AssertionError(f"replayed deployment: card vs CPU {worst}")
+    return expected, {f"deployment_{size}_fps_replayed": fps,
+                      f"deployment_{size}_replayed_card_vs_cpu_pixels": worst,
+                      f"recording_{size}_load_s": load_s}
 
 
 def phase_filters_and_deployment(scenes, card: str, errs: dict) -> tuple:
@@ -2853,26 +3053,33 @@ def phase_filters_and_deployment(scenes, card: str, errs: dict) -> tuple:
     morph_launches, calls = phase_morph(scenes, errs)
     spatial_launches = phase_spatial(scenes[0], errs)
     filter_ms = phase_depth_filters(scenes[0], card)
+    host_metrics = phase_host_runtime(card)  # before 13d: its cameras render natively
     with tempfile.TemporaryDirectory() as tmp:
         reset_launches()
         expected = {k: 0 for k in read_launches()}
         dep_expected, metrics = phase_deployment(tmp, card)
+        rec_expected, rec_metrics = phase_recorded(tmp, card)
         node_expected, node_metrics = phase_node_timing(scenes, tmp, card)
-        for part in (dep_expected, node_expected):
+        for part in (dep_expected, rec_expected, node_expected):
             for k, v in part.items():
                 expected[k] += v
         torch.cuda.synchronize()
         launches = read_launches()
-    log(f"[13d-e] launches {launches}, expected {expected}")
+    log(f"[13d-f] launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != expected {expected}")
     launches["morph_plane"] = morph_launches
     launches["spatial_filter"] = spatial_launches
     rows = {"morph_plane": None, "spatial_filter": time_spatial(scenes[0], card)}
     rows["morph_plane"], fd_ms = time_morph(scenes, card)
+    metrics.update(rec_metrics)
     metrics.update(node_metrics)
     log(f"[13] summary filters ms {json.dumps(filter_ms)} filter_depth+morphology ms "
         f"{json.dumps(fd_ms)} deployment {json.dumps(metrics)} on {card}")
+    log(f"[13e] summary host runtime ms (the machine's host CPU) {json.dumps(host_metrics)}; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in metrics.items() if k.endswith(("_fps_live",
+                                                                              "_fps_replayed")))
+        + f" frames/s on {card}")
     return launches, rows, metrics
 
 

@@ -6,6 +6,8 @@ scatter-min) and the current ones share, on one NVIDIA GPU.
     python3 compare_designs.py            # the prep and the scatter-min
     python3 compare_designs.py --filters  # filter_depth(use_morphology=True)
                                           # and spatial_filter
+    python3 compare_designs.py --host-runtime  # either, after loading and
+                                               # using the native host runtime
 
 Meant for a comparison on one card: unpack an older tree with
 ``git archive`` into a git-ignored directory, copy this file and
@@ -161,6 +163,24 @@ def time_filter_designs(scenes, card: str) -> None:
               f"{ms:.5f} ms on {card}")
 
 
+def use_host_runtime() -> None:
+    """Build, load and use the native host runtime (20 renders of a
+    1280×720 camera frame, each spatially filtered), as chip_smoke.py's
+    phase 13e leaves the process before its timing phases: its OpenMP
+    threads exist while the wrappers are timed."""
+    from pointcloud_depthfusion_tpu_torch import runtime
+    from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene, two_camera_rig
+
+    scene, (pose, _) = SyntheticScene(), two_camera_rig()
+    spheres = [[*q.center, q.radius, *q.base_color] for q in scene.spheres]
+    for k in range(20):
+        depth, _ = runtime.render_scene_native(
+            1280, 720, 950.0, 950.0, 640.0, 360.0, pose, scene.plane_z, spheres,
+            scene.checker_period, scene.max_depth, 0.001, 0.002, 0.01, k)
+        runtime.spatial_filter_native(depth)
+    S.log("native host runtime loaded and used (20 renders and spatial filters at 1280x720)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("compare_designs: torch.cuda.is_available() is false; nothing to run",
@@ -171,6 +191,8 @@ def main() -> int:
     card = S.card_line()
     S.log(card)
     _build.load()
+    if "--host-runtime" in sys.argv[1:]:
+        use_host_runtime()
     scenes = (S.build_scene(848, 480), S.build_scene(1280, 720))
     if "--filters" in sys.argv[1:]:
         time_filter_designs(scenes, card)

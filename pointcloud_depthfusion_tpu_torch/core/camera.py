@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -236,6 +237,16 @@ CAMERA_MODEL_PRESETS = {
 }
 
 
+def model_preset(model: str) -> dict:
+    """Stream preset for a camera model name (case-insensitive)."""
+    key = model.upper().replace("INTEL REALSENSE ", "")
+    if key not in CAMERA_MODEL_PRESETS:
+        raise KeyError(
+            f"unknown camera model {model!r}; known: {sorted(CAMERA_MODEL_PRESETS)}"
+        )
+    return dict(CAMERA_MODEL_PRESETS[key])
+
+
 def d455_default_intrinsics(
     width: int = 848, height: int = 480, device=None
 ) -> Intrinsics:
@@ -247,3 +258,7 @@ def d455_default_intrinsics(
         width, height, fx=fx, fy=fy, ppx=width / 2.0, ppy=height / 2.0,
         device=device,
     )
+
+
+def intrinsics_as_numpy(intr: Intrinsics) -> Tuple[float, float, float, float]:
+    return (float(intr.fx), float(intr.fy), float(intr.ppx), float(intr.ppy))

@@ -2,7 +2,8 @@
 synchronization, and the asynchronous device feeders.
 
 A copy of pointcloud_depthfusion_tpu/io/feeder.py (whose module imports
-jax): :class:`FramesetSource`, :class:`SyntheticSource`, the two-stream
+jax): :class:`FramesetSource`, :class:`SyntheticSource` and
+:class:`NativeSyntheticSource` (the C++ renderer), the two-stream
 :class:`ApproximateTimePairer` and the N-way :class:`ApproximateTimeSyncN`,
 the shared delivery machinery, :class:`DeviceFeeder` (two cameras, one
 :class:`DevicePair` per synchronized pair) and :class:`RigFeeder` (N
@@ -32,6 +33,7 @@ from pointcloud_depthfusion_tpu_torch.core.frameset import Frameset, HostFramese
 from pointcloud_depthfusion_tpu_torch.device import resolve_device
 from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene
 from pointcloud_depthfusion_tpu_torch.ops import render as R
+from pointcloud_depthfusion_tpu_torch.runtime import render_scene_native
 
 # ---------------------------------------------------------------------------
 # Sources
@@ -108,6 +110,34 @@ class SyntheticSource(FramesetSource):
         )
         self.frame_idx += 1
         return fs
+
+
+class NativeSyntheticSource(SyntheticSource):
+    """SyntheticSource rendered by the native host runtime's OpenMP renderer
+    (``runtime.render_scene_native``): bit-exact to the numpy renderer on
+    noise-free frames; its noise and holes come from the C++ xorshift RNG,
+    so they differ from the numpy source's but equal the JAX package's
+    NativeSyntheticSource for the same ``seed``. Raises when the runtime
+    cannot be built: choose the class with ``runtime.is_available()``."""
+
+    def next_frame(self) -> HostFrameset:
+        t = self.start_time + self.frame_idx / self.fps
+        if self.jitter > 0:
+            t += float(self.rng.normal(0, self.jitter))
+        scene = self.scene
+        spheres = np.asarray([[s.center[0], s.center[1], s.center[2], s.radius, *s.base_color]
+                              for s in scene.spheres])
+        intr = self._intr
+        depth, color = render_scene_native(
+            intr.width, intr.height, float(intr.fx), float(intr.fy), float(intr.ppx),
+            float(intr.ppy), self.pose, scene.plane_z, spheres, scene.checker_period,
+            scene.max_depth, 0.001,
+            noise_std=self.depth_noise_std,
+            hole_fraction=self.hole_fraction,
+            seed=int(self.rng.integers(0, 2**62)),
+        )
+        self.frame_idx += 1
+        return HostFrameset(depth=depth, color=color, timestamp=t, depth_scale=0.001)
 
 
 # ---------------------------------------------------------------------------

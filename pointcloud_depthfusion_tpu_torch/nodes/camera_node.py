@@ -8,8 +8,14 @@ publishes framesets and depth images to subscribers, and reports FPS. It
 runs pull-based inside a DeviceFeeder or push-based via :meth:`spin` on a
 thread. Host-side only: numpy frames, CPU intrinsics.
 
-Not ported: the standalone record/encode ``main`` (it needs the
-``io/recorded`` and ``io/encoded`` copies, ROADMAP A11).
+:func:`main` is the standalone camera: it streams a synthetic camera (the
+native renderer when the host runtime builds) or replays a recording, and
+writes what it captured as a ``.npz`` recording or a ``.pdfe`` stream::
+
+    python -m pointcloud_depthfusion_tpu_torch.nodes.camera_node \
+        --frames 10 --out /tmp/rec.npz
+
+Not ported: ``--source tcp://…`` (the ``io/network.py`` copy, ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import dataclasses
 import os
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -398,3 +404,82 @@ class CameraNode(FramesetSource):
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=2.0)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    """Standalone camera node: stream a synthetic camera and record it.
+
+    The CLI face of the reference camera_node main (--name selects the
+    camera, camera_node/src/main.cpp:60-100): the source is synthetic or a
+    recording, and the output a dataset file (.npz via io.recorded or .pdfe
+    via io.encoded) instead of DDS topics. ``argv``: the arguments
+    (``None``: the command line).
+    """
+    import argparse
+
+    parser = argparse.ArgumentParser(description=main.__doc__)
+    parser.add_argument("--name", default="camera_left",
+                        choices=["camera_left", "camera_right"])
+    parser.add_argument("--model", default="D455")
+    parser.add_argument("--width", type=int, default=0, help="override preset width")
+    parser.add_argument("--height", type=int, default=0)
+    parser.add_argument("--frames", type=int, default=30)
+    parser.add_argument("--out", default="", help="output dataset (.npz or .pdfe); empty = none")
+    parser.add_argument("--fps", type=float, default=0.0)
+    parser.add_argument("--source", default="",
+                        help="a recorded .npz dataset (see --out) to replay instead of the "
+                        "local synthetic camera")
+    args = parser.parse_args(argv)
+
+    from pointcloud_depthfusion_tpu_torch.core.camera import model_preset
+    from pointcloud_depthfusion_tpu_torch.io.encoded import write_encoded_stream
+    from pointcloud_depthfusion_tpu_torch.io.feeder import NativeSyntheticSource, SyntheticSource
+    from pointcloud_depthfusion_tpu_torch.io.recorded import RecordedSource, record_dataset
+    from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene, two_camera_rig
+    from pointcloud_depthfusion_tpu_torch.runtime import is_available
+
+    preset = model_preset(args.model)
+    w, h = preset["color_size"]
+    if args.width:
+        w = args.width
+    if args.height:
+        h = args.height
+    fps = args.fps or preset["fps"]
+    if args.source.startswith("tcp://"):
+        raise NotImplementedError(
+            f"--source {args.source}: remote sources are not ported yet (ROADMAP A11: the "
+            "io/network.py copy)")
+    if args.source:
+        # Replay a recording (the rosbag-replay analogue), looped so
+        # --frames beyond its length keeps streaming.
+        source = RecordedSource(args.source, loop=True)
+        intr = source.intrinsics
+        w, h = intr.width, intr.height
+        fps = args.fps or source.fps
+    else:
+        fx = 631.0 * w / 1280.0
+        intr = Intrinsics.create(w, h, fx=fx, fy=fx, ppx=w / 2, ppy=h / 2, device="cpu")
+        wl, wr = two_camera_rig()
+        pose = wl if args.name == "camera_left" else wr
+        src_cls = NativeSyntheticSource if is_available() else SyntheticSource
+        source = src_cls(SyntheticScene(), intr, pose, fps=fps,
+                         depth_noise_std=0.002, hole_fraction=0.01)
+    # The temporal EMA runs once per stream, as in the reference's
+    # getFrames: a recording made through a CameraNode already carries it.
+    node = CameraNode(args.name, source, fps=fps, temporal_filter=not args.source)
+
+    frames: List[HostFrameset] = []
+    node.subscribe_frameset(frames.append)
+    node.spin(realtime=False, max_frames=args.frames)
+    print(f"{args.name}: captured {len(frames)} frames @ {w}x{h}")
+
+    if args.out.endswith(".npz"):
+        record_dataset(args.out, frames, intr)
+        print(f"wrote {args.out}")
+    elif args.out.endswith(".pdfe"):
+        write_encoded_stream(args.out, frames)
+        print(f"wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

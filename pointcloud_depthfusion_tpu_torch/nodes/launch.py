@@ -22,8 +22,8 @@ Manifest schema (see the JAX module; all sections optional but
       frames: 60            # stop after N fused frames (0 = until EOS)
       cameras:
         - name: camera_left
-          source: synthetic         # only synthetic sources are ported
-          seed: 10
+          source: synthetic         # synthetic | /x.npz (a recording)
+          seed: 10                  # synthetic only
           pose: left                # left | right, an index, or [tx, ty, tz, yaw_deg]
           config: cam_override.yaml # camera_default.yaml override tier
       fusion:
@@ -35,9 +35,15 @@ Manifest schema (see the JAX module; all sections optional but
         out_dir: /tmp/pdf_launch    # PNG sink (ImageNode)
         every_n: 8
 
-Not ported (ROADMAP A11): ``source: tcp://…`` and recording paths (the
-``io/network.py`` and ``io/recorded.py`` copies), ``serve:``, and the
-native synthetic renderer: the numpy SyntheticSource renders every frame.
+Synthetic cameras render with the native host runtime's C++ renderer
+(``NativeSyntheticSource``) when it builds, else with the numpy
+``SyntheticSource``, as the JAX launcher chooses. A path replays a
+recording (``io.recorded.RecordedSource``, looped) with the camera node's
+temporal filter off: the recording already carries it. Record one with
+``python -m pointcloud_depthfusion_tpu_torch.nodes.camera_node --out x.npz``.
+
+Not ported (ROADMAP A11): ``source: tcp://…`` and ``serve:`` (the
+``io/network.py`` copy).
 """
 
 from __future__ import annotations
@@ -92,35 +98,51 @@ def _camera_pose(spec, index: int, n: int) -> np.ndarray:
 
 
 def _build_camera(spec: dict, index: int, n: int, width: int, height: int):
-    """One manifest camera entry → a CameraNode over a synthetic source."""
+    """One manifest camera entry → a CameraNode over a synthetic source or
+    a recording."""
     from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
-    from pointcloud_depthfusion_tpu_torch.io.feeder import SyntheticSource
+    from pointcloud_depthfusion_tpu_torch.io.feeder import NativeSyntheticSource, SyntheticSource
+    from pointcloud_depthfusion_tpu_torch.io.recorded import RecordedSource
     from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene
     from pointcloud_depthfusion_tpu_torch.nodes.camera_node import CameraNode
+    from pointcloud_depthfusion_tpu_torch.runtime import is_available as native_ok
     from pointcloud_depthfusion_tpu_torch.utils import factory
 
     name = spec.get("name", f"camera_{index}")
     kind = str(spec.get("source", "synthetic"))
-    if kind != "synthetic":
-        what = "remote tcp:// sources" if kind.startswith("tcp://") else "recorded sources"
+    if kind.startswith("tcp://"):
         raise NotImplementedError(
-            f"camera {name!r}: {what} ({kind}) are not ported yet (ROADMAP A11: the "
-            "io/network.py and io/recorded.py copies)")
+            f"camera {name!r}: remote tcp:// sources ({kind}) are not ported yet (ROADMAP A11: "
+            "the io/network.py copy)")
     if spec.get("serve"):
         raise NotImplementedError(
             f"camera {name!r}: serve: is not ported yet (ROADMAP A11: the io/network.py copy)")
-    pose = _camera_pose(spec, index, n)
-    fx = 631.0 * width / 848.0
-    intr = Intrinsics.create(width, height, fx=fx, fy=fx, ppx=width / 2, ppy=height / 2,
-                             device="cpu")
-    source = SyntheticSource(
-        SyntheticScene(), intr, pose,
-        depth_noise_std=float(spec.get("depth_noise_std", 0.002)),
-        seed=int(spec.get("seed", 10 * (index + 1))),
-    )
+    pose = None
+    if kind != "synthetic":
+        # A path: replay a recording. It already carries its capture
+        # path's temporal EMA; filtering again would double it.
+        source = RecordedSource(kind, loop=True)
+    else:
+        pose = _camera_pose(spec, index, n)
+        fx = 631.0 * width / 848.0
+        intr = Intrinsics.create(width, height, fx=fx, fy=fx, ppx=width / 2, ppy=height / 2,
+                                 device="cpu")
+        cls = NativeSyntheticSource if native_ok() else SyntheticSource
+        source = cls(
+            SyntheticScene(), intr, pose,
+            depth_noise_std=float(spec.get("depth_noise_std", 0.002)),
+            seed=int(spec.get("seed", 10 * (index + 1))),
+        )
     cam = CameraNode(name, source)
     cam.attach_config(factory.camera_config(name, spec.get("config")))
-    # The rig tier seeds its calibration from the true synthetic poses.
+    if pose is None:
+        # Set through the tree, after it is attached: camera_default.yaml
+        # turns the filter on for camera_left and camera_right, which
+        # overrides a constructor argument (the JAX launcher's, ROADMAP
+        # queue C).
+        cam.config.set("sensor.depth.temporal_filter", False)
+    # The rig tier seeds its calibration from the true synthetic poses;
+    # a recording has none.
     cam.launch_pose = pose
     return cam
 
@@ -236,9 +258,15 @@ def _run_rig(cameras, fusion_section, reg_every, sink, fused, max_frames, device
     if fusion_section.get("config"):
         config, _ = factory.fusion_config(fusion_section["config"], device)
     # Per-camera intrinsics, and the true synthetic poses as the initial
-    # calibration (cam→world is cam→virtual for the world-frame camera).
+    # calibration (cam→world is cam→virtual for the world-frame camera);
+    # with a recording among the cameras, the identity, which the per-pair
+    # sweeps calibrate.
     intrs = [c.intrinsics for c in cameras]
-    initial = np.stack([c.launch_pose for c in cameras]).astype(np.float32)
+    poses = [c.launch_pose for c in cameras]
+    if all(p is not None for p in poses):
+        initial = np.stack(poses).astype(np.float32)
+    else:
+        initial = np.eye(4, dtype=np.float32)[None].repeat(n, 0)
     app = RigFusionNodeApp(cameras, intrs, initial, config=config,
                            registration_every=reg_every,
                            registration_async=False,  # deterministic frame counts

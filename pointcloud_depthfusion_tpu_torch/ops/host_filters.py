@@ -1,18 +1,29 @@
-"""Host-side (numpy) rs2 post-processing filters for the camera node's
-capture thread: a numpy copy of pointcloud_depthfusion_tpu/ops/host_filters.py.
+"""Host-side rs2 post-processing filters for the camera node's capture
+thread: a copy of pointcloud_depthfusion_tpu/ops/host_filters.py.
 
 A device round trip per frame costs more than these filters, so the
 camera node runs them on the host, value for value as ``ops.filters``
-computes them. The JAX package's copy can dispatch to its native C++
-runtime (runtime/pdf_runtime.cpp, ~2 ms instead of ~130 ms for the spatial
-filter at 848×480 on its host) and reads the holes_fill rule from its
-``ops.filters``, which imports jax; this copy is numpy only and has no
-native path (ROADMAP A11).
+computes them. The spatial and decimation filters dispatch to the native
+host runtime (``runtime``, the port's copy of the C++ filter bank) when it
+loads, as the JAX package's do; their numpy versions
+(``_spatial_filter_numpy``, ``_decimation_filter_numpy``) are the plain
+versions, value-identical to the native ones. The card machine's times
+for both are in PERF.md §5 (``chip_smoke.py`` phase 13e). The holes_fill
+rule is this module's own copy (the JAX package reads it from its
+``ops.filters``, which imports jax).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from pointcloud_depthfusion_tpu_torch import runtime
+
+
+def _native():
+    """The native runtime when it loads, else None (the numpy versions
+    serve)."""
+    return runtime if runtime.has_native_filters() else None
 
 
 def spatial_holes_radius(holes_fill: int, width: int) -> int:
@@ -37,6 +48,14 @@ def decimation_filter_np(depth_u16: np.ndarray, magnitude: int = 2) -> np.ndarra
         return depth_u16
     if h % m or w % m:
         raise ValueError(f"image {h}x{w} not divisible by magnitude {m}")
+    rt = _native()
+    if rt is not None:
+        return rt.decimation_filter_native(depth_u16, m)
+    return _decimation_filter_numpy(depth_u16, m)
+
+
+def _decimation_filter_numpy(depth_u16: np.ndarray, m: int) -> np.ndarray:
+    h, w = depth_u16.shape
     blocks = depth_u16.reshape(h // m, m, w // m, m)
     vals = np.moveaxis(blocks, (1, 3), (2, 3)).reshape(h // m, w // m, m * m)
     vals = vals.astype(np.int32)
@@ -77,7 +96,26 @@ def spatial_filter_np(
     magnitude: int = 2,
     holes_fill: int = 0,
 ) -> np.ndarray:
-    """Four-direction recursive EMA (see filters.spatial_filter)."""
+    """Four-direction recursive EMA (see filters.spatial_filter).
+
+    Native only for the dtypes the C++ buffers hold exactly (u16 and u8
+    depth, f32 disparity): the numpy recursion filters wider integers at
+    full value and clips at the end, which a u16 buffer cannot reproduce,
+    so those stay on numpy and the result's values and dtype do not depend
+    on whether the native runtime loads."""
+    spatial_holes_radius(holes_fill, depth.shape[1])
+    rt = _native()
+    if rt is not None and depth.dtype in (np.uint16, np.uint8, np.float32):
+        out = rt.spatial_filter_native(
+            depth.astype(np.uint16) if depth.dtype == np.uint8 else depth,
+            alpha, delta, magnitude, holes_fill,
+        )
+        return out.astype(depth.dtype, copy=False)
+    return _spatial_filter_numpy(depth, alpha, delta, magnitude, holes_fill)
+
+
+def _spatial_filter_numpy(depth: np.ndarray, alpha: float = 0.55, delta: float = 20.0,
+                          magnitude: int = 2, holes_fill: int = 0) -> np.ndarray:
     holes_radius = spatial_holes_radius(holes_fill, depth.shape[1])
     integer_domain = np.issubdtype(depth.dtype, np.integer)
     x = depth.astype(np.float32)

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import pointcloud_depthfusion_tpu.runtime as jax_runtime
+import pointcloud_depthfusion_tpu_torch.runtime as torch_runtime
 from pointcloud_depthfusion_tpu.nodes import image_node as JImg
 from pointcloud_depthfusion_tpu.nodes import launch as JL
 from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
@@ -177,14 +178,29 @@ def _manifest(tmp_path):
     return m
 
 
-def test_dual_deployment_matches_jax(tmp_path, monkeypatch):
+@pytest.mark.parametrize("native", [False, True], ids=["numpy", "native"])
+def test_dual_deployment_matches_jax(tmp_path, monkeypatch, native):
     """The slice end to end: two CameraNodes → DeviceFeeder →
     FusionNodeApp with RegistrationNodeApp ticks → ImageNode, against the
-    JAX package's run_deployment on the same manifest (its numpy synthetic
-    source: the native renderer is switched off). Fused frames within the
-    parity budget (XLA's CPU jit contracts FMAs, ROADMAP queue C), the same
-    count, stamps, shape and coverage; the last tick's fitness within 1e-5."""
-    monkeypatch.setattr(jax_runtime, "is_available", lambda: False)
+    JAX package's run_deployment on the same manifest, with both
+    packages' synthetic cameras on the numpy renderer (the native runtime
+    switched off on both sides) or on the native one. Fused frames within
+    the parity budget (XLA's CPU jit contracts FMAs, ROADMAP queue C), the
+    same count, stamps, shape and coverage; the last tick's fitness within
+    1e-5."""
+    if native:
+        assert jax_runtime.is_available() and torch_runtime.is_available()
+    else:
+        monkeypatch.setattr(jax_runtime, "is_available", lambda: False)
+        monkeypatch.setattr(torch_runtime, "is_available", lambda: False)
+    kinds = []
+
+    def build(*args, orig=TL._build_camera):
+        cam = orig(*args)
+        kinds.append(type(cam.source).__name__)
+        return cam
+
+    monkeypatch.setattr(TL, "_build_camera", build)
     seen = {}
     for key, mod in (("jax", JImg), ("torch", TImg)):
         frames = seen.setdefault(key, [])
@@ -211,11 +227,13 @@ def test_dual_deployment_matches_jax(tmp_path, monkeypatch):
     for (tj, ij), (tt, it) in zip(seen["jax"], seen["torch"]):
         assert tt == tj
         assert (ij != it).any(-1).mean() <= PIXEL_BUDGET
+    assert kinds == ["NativeSyntheticSource" if native else "SyntheticSource"] * 2
 
 
-def test_rig_deployment_and_unported_sources(tmp_path):
-    """Three cameras compose the rig tier on RigFusionNodeApp; tcp://,
-    recordings and serve: raise naming the roadmap item."""
+def test_rig_deployment_and_unported_sources(tmp_path, monkeypatch):
+    """Three cameras compose the rig tier on RigFusionNodeApp; with a
+    recording among them the rig starts from the identity calibration;
+    tcp:// and serve: raise naming the roadmap item."""
     m = {"width": 64, "height": 48,
          "cameras": [{"name": f"cam{i}", "source": "synthetic", "seed": 10 + i, "pose": i}
                      for i in range(3)],
@@ -224,8 +242,24 @@ def test_rig_deployment_and_unported_sources(tmp_path):
     s = TL.run_deployment(m, device="cpu", frames=3)
     assert (s["tier"], s["cameras"], s["frames"], s["fused_shape"]) == ("rig", 3, 3, [48, 64, 3])
     assert s["fused_coverage"] > 0.3 and s["saved_pngs"] == 2
-    for extra in ({"source": "tcp://camhost:7447"}, {"source": "/data/rec.npz"},
-                  {"serve": "127.0.0.1:0"}):
+    from pointcloud_depthfusion_tpu_torch.nodes import camera_node, rig_node
+
+    rec = str(tmp_path / "rec.npz")
+    monkeypatch.setattr("sys.argv", ["camera_node", "--width", "64", "--height", "48",
+                                     "--frames", "2", "--out", rec])
+    camera_node.main()
+    initial = []
+
+    def init(self, cams, intrs, c2v, orig=rig_node.RigFusionNodeApp.__init__, **kw):
+        initial.append(c2v)
+        orig(self, cams, intrs, c2v, **kw)
+
+    monkeypatch.setattr(rig_node.RigFusionNodeApp, "__init__", init)
+    replayed = dict(m, cameras=[dict(m["cameras"][0], source=rec)] + m["cameras"][1:])
+    s = TL.run_deployment(replayed, device="cpu", frames=2)
+    assert (s["tier"], s["frames"], s["fused_shape"]) == ("rig", 2, [48, 64, 3])
+    np.testing.assert_array_equal(initial[-1], np.eye(4, dtype=np.float32)[None].repeat(3, 0))
+    for extra in ({"source": "tcp://camhost:7447"}, {"serve": "127.0.0.1:0"}):
         bad = dict(m, cameras=[dict(m["cameras"][0], **extra)] + m["cameras"][1:])
         with pytest.raises(NotImplementedError, match="A11"):
             TL.run_deployment(bad, device="cpu", frames=1)

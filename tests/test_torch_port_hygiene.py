@@ -1,5 +1,6 @@
-"""Boundaries of the PyTorch port: it never imports jax, CPU tensors never
-reach the CUDA build, and a missing or failing nvcc raises."""
+"""Boundaries of the PyTorch port: it never imports jax, importing it
+builds nothing, CPU tensors never reach the CUDA build, and a missing or
+failing nvcc raises."""
 
 import os
 import pathlib
@@ -29,7 +30,8 @@ def test_port_imports_no_jax():
     for m in ("fusion.pipeline", "parallel.mesh", "io.feeder", "nodes.rig_node",
               "utils.profiling", "io.artifacts", "ops.cuda.morph_cuda", "ops.host_filters",
               "nodes.camera_node", "nodes.fusion_node", "nodes.registration_node",
-              "nodes.image_node", "nodes.launch", "utils.factory"):
+              "nodes.image_node", "nodes.launch", "utils.factory", "runtime.bindings",
+              "io.recorded", "io.encoded"):
         assert f"pointcloud_depthfusion_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -37,6 +39,9 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('pointcloud_depthfusion_tpu.') or m == 'pointcloud_depthfusion_tpu')\n"
         "print(len(sys.modules)); assert not bad, bad\n"
+        "from pointcloud_depthfusion_tpu_torch.runtime import bindings\n"
+        "from pointcloud_depthfusion_tpu_torch.ops.cuda import _build\n"
+        "assert bindings._lib is None and _build._lib is None, 'an import built a library'\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
