@@ -43,7 +43,13 @@ before and read just after:
         (CameraNode → DeviceFeeder → FusionNodeApp with RegistrationNodeApp
         ticks → ImageNode) on the card and against the CPU, the same
         deployment replayed from recordings made by ``CameraNode.main``,
-        and ``FusionNodeApp.run`` over prerendered frames, timed.
+        ``FusionNodeApp.run`` over prerendered frames, timed, and (13g) the
+        two-host deployment: two camera-host processes
+        (``python -m pointcloud_depthfusion_tpu_torch.io.network``, raw and
+        then png) serve ``run_deployment``'s ``tcp://`` cameras over TCP at
+        1280×720, card against CPU on the pairs the card fused, the hosts
+        never initialising CUDA; ``serve:`` with a remote client; and the
+        demo as a process of its own on the card.
 
 It times frames, ticks and kernels with CUDA events and a host clock ending
 in ``synchronize()`` (the resolve, B3 and the scatter-min also by the
@@ -65,6 +71,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from typing import Optional
 
@@ -225,6 +232,21 @@ RENDER_ITERS, RENDER_NUMPY_ITERS = 10, 2
 FILTER_SIZE = (848, 480)
 FILTER_ITERS, FILTER_NUMPY_ITERS = 10, 2
 RECORD_SIZE = (1280, 720)
+# Phase 13g, the two-host deployment: two camera-host processes (io.network's
+# main, the native synthetic camera at TWO_HOST_SIZE, paced at 30 FPS,
+# TWO_HOST_FRAMES frames to each client, TWO_HOST_QUEUE frames queued per
+# client so that none is dropped) serve the fusion host's run_deployment over
+# TCP, with each codec; TWO_HOST_CMP_PAIRS of the fused pairs are fused again
+# on the CPU; then a manifest with serve: on both cameras and a remote client,
+# and the demo as a process of its own. HOST_START_S bounds a camera host's
+# start.
+TWO_HOST_SIZE = (1280, 720)
+TWO_HOST_FRAMES = 30
+TWO_HOST_QUEUE = 32
+TWO_HOST_CMP_PAIRS = 3
+TWO_HOST_CODECS = ("raw", "png")
+HOST_START_S = 120.0
+DEMO_ARGS = ("--frames", "30", "--width", "1280", "--height", "720", "--sway", "0.05")
 # Phase 3: the image kernel's (H, W): the fused frames' (vertical) and
 # landscape shapes at both sizes, odd widths, and images under 3×3; its
 # modes by launch counter.
@@ -2679,14 +2701,18 @@ def deployment_manifest(w: int, h: int, frames: int, every: int, out_dir: str,
     return m
 
 
-def run_deployment_recorded(manifest: dict, dev) -> tuple:
+def run_deployment_recorded(manifest: dict, dev, cams: Optional[list] = None,
+                            pairs: Optional[list] = None) -> tuple:
     """``run_deployment`` on ``dev``, recording every fused image the viewer
     receives: (summary, [(stamp, image)], wall s ending in synchronize,
-    [class name of each camera's source])."""
-    from pointcloud_depthfusion_tpu_torch.nodes import image_node, launch
+    [class name of each camera's source]). ``cams`` collects the camera
+    nodes built, ``pairs`` the (left, right) host frames of every pair the
+    fusion node fused."""
+    from pointcloud_depthfusion_tpu_torch.nodes import fusion_node, image_node, launch
 
     seen, sources = [], []
     orig, orig_build = image_node.ImageNode.__call__, launch._build_camera
+    orig_process = fusion_node.FusionNodeApp.process_pair
 
     def record(self, image, ts):
         seen.append((ts, np.array(image)))
@@ -2695,10 +2721,18 @@ def run_deployment_recorded(manifest: dict, dev) -> tuple:
     def build(*args):
         cam = orig_build(*args)
         sources.append(type(cam.source).__name__)
+        if cams is not None:
+            cams.append(cam)
         return cam
+
+    def process(self, pair):
+        if pairs is not None:
+            pairs.append((pair.host_left, pair.host_right))
+        return orig_process(self, pair)
 
     image_node.ImageNode.__call__ = record
     launch._build_camera = build
+    fusion_node.FusionNodeApp.process_pair = process
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2708,6 +2742,7 @@ def run_deployment_recorded(manifest: dict, dev) -> tuple:
     finally:
         image_node.ImageNode.__call__ = orig
         launch._build_camera = orig_build
+        fusion_node.FusionNodeApp.process_pair = orig_process
     return summary, seen, wall, sources
 
 
@@ -3045,6 +3080,289 @@ def phase_recorded(tmp: str, card: str) -> tuple:
                       f"recording_{size}_load_s": load_s}
 
 
+def read_line(proc, timeout: float) -> str:
+    """The next line of ``proc``'s stdout, waiting at most ``timeout`` s."""
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    if not ready:
+        raise AssertionError(f"no output from {proc.args} within {timeout} s")
+    return proc.stdout.readline()
+
+
+def stop_camera_hosts(hosts: list, check: bool = True) -> list:
+    """SIGINT to each camera host, then its exit JSON line (frames sent and
+    dropped, whether CUDA was initialised); ``check=False`` only reaps."""
+    import signal
+
+    for _, proc, _ in hosts:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+    stats = []
+    for name, proc, _ in hosts:
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        if check:
+            lines = out.strip().splitlines()
+            if proc.returncode != 0 or not lines or not lines[-1].startswith("{"):
+                raise AssertionError(f"camera host {name}: exit {proc.returncode}, stdout "
+                                     f"{out[-2000:]!r}, stderr {err[-2000:]!r}")
+            stats.append(json.loads(lines[-1]))
+    return stats
+
+
+def start_camera_hosts(codec: str, w: int, h: int) -> list:
+    """The two camera hosts of phase 13g as processes: [[name, process,
+    port]], each on a free port it reports."""
+    hosts = []
+    try:
+        for name in ("camera_left", "camera_right"):
+            cmd = [sys.executable, "-m", "pointcloud_depthfusion_tpu_torch.io.network", "--name",
+                   name, "--host", "127.0.0.1", "--port", "0", "--width", str(w), "--height",
+                   str(h), "--frames", str(TWO_HOST_FRAMES), "--codec", codec, "--queue-size",
+                   str(TWO_HOST_QUEUE)]
+            hosts.append([name, subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.PIPE, text=True), None])
+        for host in hosts:
+            line = read_line(host[1], HOST_START_S)
+            port = re.search(r":(\d+) \(", line)
+            if port is None:
+                raise AssertionError(f"camera host {host[0]} printed {line!r}")
+            host[2] = int(port.group(1))
+    except BaseException:
+        stop_camera_hosts(hosts, check=False)
+        raise
+    return hosts
+
+
+def two_host_manifest(hosts: list, every: int, out_dir: str) -> dict:
+    w, h = TWO_HOST_SIZE
+    m = deployment_manifest(w, h, TWO_HOST_FRAMES, every, out_dir)
+    m["cameras"] = [{"name": name, "source": f"tcp://127.0.0.1:{port}"} for name, _, port in hosts]
+    return m
+
+
+def fuse_pairs_on_cpu(pairs: list, intrs: list) -> list:
+    """[(stamp, image)] of FusionNodeApp on the CPU over the given host pairs
+    (already filtered by the card run's camera nodes, so no filter here),
+    with the shipped fusion config and every pair kept."""
+    from pointcloud_depthfusion_tpu_torch.nodes.camera_node import CameraNode
+    from pointcloud_depthfusion_tpu_torch.nodes.fusion_node import FusionNodeApp
+    from pointcloud_depthfusion_tpu_torch.utils import factory
+
+    cams = [CameraNode(name, ReplaySource([p[i] for p in pairs], intrs[i]),
+                       temporal_filter=False)
+            for i, name in enumerate(("camera_left", "camera_right"))]
+    cfg, tree = factory.fusion_config(device="cpu")
+    kwargs = dict(factory.fusion_node_kwargs_from_tree(tree), lifespan_s=None)
+    app = FusionNodeApp(*cams, config=cfg, device="cpu", **kwargs)
+    out = []
+    app.subscribe_fused(lambda img, ts: out.append((ts, np.array(img))))
+    if app.run() != len(pairs):
+        raise AssertionError(f"the CPU fused {len(out)} of {len(pairs)} pairs")
+    return out
+
+
+def check_two_host_summary(label: str, summary: dict, seen: list, sources: list, every: int,
+                           out_dir: Optional[str]) -> float:
+    """The two-host and served runs' bar: every frame fused, the shape, the
+    coverage, the ticks and a finite fitness (when registration runs), and
+    the PNGs; returns the least coverage."""
+    w, h = TWO_HOST_SIZE
+    coverage = min(float(img.any(-1).mean()) for _, img in seen) if seen else 0.0
+    pngs = sorted(os.listdir(out_dir)) if out_dir else []
+    ok = (summary["frames"] == TWO_HOST_FRAMES and len(seen) == TWO_HOST_FRAMES
+          and summary["fused_shape"] == [w, h, 3] and coverage >= 0.5
+          and len(pngs) == summary["saved_pngs"] and pngs)
+    if every:
+        ok = ok and summary["registration_ticks"] == -(-TWO_HOST_FRAMES // every) \
+            and np.isfinite(summary["registration_fitness"])
+    if not ok:
+        raise AssertionError(f"{label}: {summary}, {len(seen)} frames, sources {sources}, "
+                             f"coverage {coverage}, {len(pngs)} PNGs")
+    return coverage
+
+
+def phase_two_host(tmp: str, card: str) -> tuple:
+    """(g) The two-host deployment at TWO_HOST_SIZE with the shipped fusion
+    and registration configs. For each codec, two camera-host processes
+    (``python -m pointcloud_depthfusion_tpu_torch.io.network``) serve the
+    fusion host's ``run_deployment`` (tcp:// cameras, registration every
+    DEPLOY_EVERY, the PNG sink) on the card: every frame fused, coverage at
+    least 0.5, a finite fitness; the fusion host's frames/s and its receive
+    and decode time per frame, each host's frames sent and dropped (0), and
+    no host initialised CUDA. With the raw codec a second run on the same
+    hosts has registration off, and TWO_HOST_CMP_PAIRS of the pairs it fused
+    are fused again on the CPU: within PIXEL_BUDGET. Then serve: on both
+    synthetic cameras of a card deployment with a NetworkSource client on
+    one served port: the deployment fuses every frame and the client
+    receives frames. Returns (expected launches, {metric: value})."""
+    from pointcloud_depthfusion_tpu_torch.io import network
+    from pointcloud_depthfusion_tpu_torch.nodes.camera_node import CameraNode
+
+    w, h = TWO_HOST_SIZE
+    size = f"{w}x{h}"
+    expected, metrics = {}, {}
+
+    def add(summary):
+        for k, v in deployment_expected(summary).items():
+            expected[k] = expected.get(k, 0) + v
+
+    for codec in TWO_HOST_CODECS:
+        t0 = time.perf_counter()
+        hosts = start_camera_hosts(codec, w, h)
+        start_s = time.perf_counter() - t0
+        runs = 1
+        bank_s, orig_bank = [], CameraNode._apply_filter_bank
+
+        def bank(self, fs):
+            t = time.perf_counter()
+            out = orig_bank(self, fs)
+            bank_s.append(time.perf_counter() - t)
+            return out
+
+        try:
+            cams = []
+            out_dir = os.path.join(tmp, f"two_host_{codec}")
+            CameraNode._apply_filter_bank = bank  # the fusion host's filters, timed
+            try:
+                summary, seen, wall, sources = run_deployment_recorded(
+                    two_host_manifest(hosts, DEPLOY_EVERY, out_dir), DEVICE, cams=cams)
+            finally:
+                CameraNode._apply_filter_bank = orig_bank
+            add(summary)
+            coverage = check_two_host_summary(f"two-host {codec}", summary, seen, sources,
+                                              DEPLOY_EVERY, out_dir)
+            if sources != ["NetworkSource"] * 2:
+                raise AssertionError(f"two-host {codec}: camera sources {sources}")
+            nets = [c.source for c in cams]
+            recv = [1e3 * n.recv_s / n.frames_received for n in nets]
+            decode = [1e3 * n.decode_s / n.frames_received for n in nets]
+            fps = len(seen) / wall
+            log(f"[13g] two hosts, {codec}, {size}: run_deployment on the card "
+                f"{json.dumps(summary)}; {len(seen)} frames in {wall:.3f} s ({fps:.3f} frames/s), "
+                f"min coverage {coverage:.4f}; fusion host per frame: receive "
+                f"{recv[0]:.3f} | {recv[1]:.3f} ms (waits included), decode {decode[0]:.3f} | "
+                f"{decode[1]:.3f} ms (left | right), the camera node's filter bank (temporal) "
+                f"{1e3 * np.mean(bank_s):.3f} ms a capture; frames received "
+                f"{[n.frames_received for n in nets]}; hosts started in {start_s:.3f} s, on "
+                f"{card}")
+            metrics[f"two_host_{codec}_{size}_fps"] = fps
+            metrics[f"two_host_{codec}_{size}_recv_ms"] = recv
+            metrics[f"two_host_{codec}_{size}_decode_ms"] = decode
+            metrics[f"two_host_{codec}_{size}_filter_ms"] = 1e3 * float(np.mean(bank_s))
+            if codec == "raw":
+                runs += 1
+                pairs, cams = [], []
+                off, seen_off, _, _ = run_deployment_recorded(
+                    two_host_manifest(hosts, 0, os.path.join(tmp, "two_host_off")), DEVICE,
+                    cams=cams, pairs=pairs)
+                add(off)
+                if off["frames"] != TWO_HOST_FRAMES or len(pairs) != TWO_HOST_FRAMES:
+                    raise AssertionError(f"two-host, registration off: {off}, {len(pairs)} pairs")
+                step = TWO_HOST_FRAMES // TWO_HOST_CMP_PAIRS
+                chosen = pairs[::step][:TWO_HOST_CMP_PAIRS]
+                card_by_stamp = dict(seen_off)
+                worst = 0.0
+                for ts, img in fuse_pairs_on_cpu(chosen, [c.source.intrinsics for c in cams]):
+                    worst = max(worst, float((card_by_stamp[ts] != img).any(-1).mean()))
+                log(f"[13g] two hosts, raw, registration off: {len(chosen)} of the "
+                    f"{len(pairs)} fused pairs fused again on the CPU: the card's images "
+                    f"differ on at most {worst:.6g} of pixels (budget {PIXEL_BUDGET})")
+                if worst > PIXEL_BUDGET:
+                    raise AssertionError(f"two-host card vs CPU {worst}")
+                metrics[f"two_host_{size}_card_vs_cpu_pixels"] = worst
+        except BaseException:
+            stop_camera_hosts(hosts, check=False)
+            raise
+        stats = stop_camera_hosts(hosts)
+        per_frame = [{k: 1e3 * st[k] / (st["frames_sent"] + st["frames_dropped"])
+                      for k in ("capture_s", "encode_s")} for st in stats]
+        log(f"[13g] camera hosts ({codec}) at exit: {json.dumps(stats)}; per frame (ms, the "
+            f"machine's host CPU): {json.dumps(per_frame)}")
+        for st in stats:
+            if (st["cuda_initialized"] or st["frames_dropped"]
+                    or st["frames_sent"] != runs * TWO_HOST_FRAMES):
+                raise AssertionError(f"camera host {st}")
+        metrics[f"two_host_{codec}_hosts"] = stats
+        metrics[f"two_host_{codec}_host_ms"] = per_frame
+
+    # serve: on both cameras, and a remote client on the first served port.
+    ports, received, readers = [], [], []
+    orig_start = network.FramesetStreamServer.start
+
+    def read(client):
+        try:
+            while (fs := client.next_frame()) is not None:
+                received.append(fs)
+        except ConnectionError:
+            pass  # stop() at the deployment's end may cut the stream
+
+    def start(self):
+        orig_start(self)
+        ports.append(self.port)
+        if len(ports) == 1:
+            reader = threading.Thread(target=read, args=(network.NetworkSource(
+                "127.0.0.1", self.port, timeout_s=60.0),), daemon=True)
+            reader.start()
+            readers.append(reader)
+        return self
+
+    out_dir = os.path.join(tmp, "served")
+    manifest = deployment_manifest(w, h, TWO_HOST_FRAMES, DEPLOY_EVERY, out_dir)
+    manifest["cameras"] = [dict(c, serve="127.0.0.1:0") for c in manifest["cameras"]]
+    network.FramesetStreamServer.start = start
+    try:
+        summary, seen, wall, sources = run_deployment_recorded(manifest, DEVICE)
+    finally:
+        network.FramesetStreamServer.start = orig_start
+    for reader in readers:
+        reader.join(timeout=60.0)
+    add(summary)
+    coverage = check_two_host_summary("served", summary, seen, sources, DEPLOY_EVERY, out_dir)
+    log(f"[13g] serve: on both cameras, {size}: run_deployment on the card "
+        f"{json.dumps(summary)}; {len(seen)} frames in {wall:.3f} s "
+        f"({len(seen) / wall:.3f} frames/s), min coverage {coverage:.4f}; the remote client on "
+        f"port {ports[0]} received {len(received)} frames on {card}")
+    if (summary["served_ports"] != ports or len(ports) != 2 or not received
+            or any(r.is_alive() for r in readers)
+            or any(fs.depth.shape != (h, w) for fs in received)):
+        raise AssertionError(f"served deployment: {summary}, ports {ports}, "
+                             f"{len(received)} frames received")
+    metrics[f"served_{size}_fps"] = len(seen) / wall
+    metrics[f"served_{size}_client_frames"] = len(received)
+    return expected, metrics
+
+
+def phase_demo(tmp: str, card: str) -> dict:
+    """(g) The demo as its own process on the card: exit 0, the card named,
+    the summary JSON last with every frame fused and a finite fitness, and
+    its PNGs written."""
+    out = os.path.join(tmp, "demo")
+    cmd = [sys.executable, "-m", "pointcloud_depthfusion_tpu_torch.nodes.demo", *DEMO_ARGS,
+           "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    summary = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+    pngs = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    log(f"[13g] demo {' '.join(DEMO_ARGS)}: exit {proc.returncode} in {wall:.3f} s (the "
+        f"process's start and build included); {lines[0] if lines else ''}; {json.dumps(summary)}; "
+        f"{len(pngs)} PNGs on {card}")
+    frames = int(DEMO_ARGS[DEMO_ARGS.index("--frames") + 1])
+    if (proc.returncode != 0 or summary.get("frames") != frames
+            or not np.isfinite(summary.get("registration_fitness") or np.nan)
+            or summary.get("saved_pngs") != len(pngs) or not pngs
+            or torch.cuda.get_device_name(0) not in lines[0]):
+        raise AssertionError(f"demo: exit {proc.returncode}, {summary}, {len(pngs)} PNGs, "
+                             f"stdout {proc.stdout[-2000:]!r}, stderr {proc.stderr[-3000:]!r}")
+    return {"demo_wall_s": wall, "demo_fused_ms_p50": summary["fused_ms_p50"]}
+
+
 def phase_filters_and_deployment(scenes, card: str, errs: dict) -> tuple:
     """Phase 13. Returns (launches of each kernel on its main paths here,
     B6's and the spatial filter's timing rows, {metric: value})."""
@@ -3060,12 +3378,17 @@ def phase_filters_and_deployment(scenes, card: str, errs: dict) -> tuple:
         dep_expected, metrics = phase_deployment(tmp, card)
         rec_expected, rec_metrics = phase_recorded(tmp, card)
         node_expected, node_metrics = phase_node_timing(scenes, tmp, card)
-        for part in (dep_expected, rec_expected, node_expected):
+        t0 = time.perf_counter()
+        two_host_expected, two_host_metrics = phase_two_host(tmp, card)
+        two_host_metrics.update(phase_demo(tmp, card))
+        two_host_metrics["phase_13g_s"] = time.perf_counter() - t0
+        log(f"[13g] phase wall {two_host_metrics['phase_13g_s']:.3f} s")
+        for part in (dep_expected, rec_expected, node_expected, two_host_expected):
             for k, v in part.items():
                 expected[k] += v
         torch.cuda.synchronize()
         launches = read_launches()
-    log(f"[13d-f] launches {launches}, expected {expected}")
+    log(f"[13d-g] launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != expected {expected}")
     launches["morph_plane"] = morph_launches
@@ -3074,11 +3397,12 @@ def phase_filters_and_deployment(scenes, card: str, errs: dict) -> tuple:
     rows["morph_plane"], fd_ms = time_morph(scenes, card)
     metrics.update(rec_metrics)
     metrics.update(node_metrics)
+    metrics.update(two_host_metrics)
     log(f"[13] summary filters ms {json.dumps(filter_ms)} filter_depth+morphology ms "
         f"{json.dumps(fd_ms)} deployment {json.dumps(metrics)} on {card}")
     log(f"[13e] summary host runtime ms (the machine's host CPU) {json.dumps(host_metrics)}; "
-        + ", ".join(f"{k} {v:.3f}" for k, v in metrics.items() if k.endswith(("_fps_live",
-                                                                              "_fps_replayed")))
+        + ", ".join(f"{k} {v:.3f}" for k, v in metrics.items()
+                    if k.endswith(("_fps_live", "_fps_replayed", "_fps")))
         + f" frames/s on {card}")
     return launches, rows, metrics
 

@@ -23,7 +23,7 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Deque, List, Optional, Sequence, Tuple
+from typing import Callable, Deque, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,8 +52,10 @@ class FramesetSource:
 
 
 class SyntheticSource(FramesetSource):
-    """Deterministic synthetic stream from a fixed camera pose, with optional
-    timestamp jitter (models real sensors' non-ideal cadence)."""
+    """Deterministic synthetic stream with optional per-frame camera motion
+    and timestamp jitter (models real sensors' non-ideal cadence).
+    ``motion(frame_index)`` returns the 4×4 world_from_camera of that frame
+    in place of the fixed pose."""
 
     def __init__(
         self,
@@ -64,6 +66,7 @@ class SyntheticSource(FramesetSource):
         depth_noise_std: float = 0.002,
         hole_fraction: float = 0.01,
         timestamp_jitter_s: float = 0.0,
+        motion: Optional[Callable[[int], np.ndarray]] = None,
         seed: int = 0,
         start_time: float = 0.0,
     ):
@@ -74,6 +77,7 @@ class SyntheticSource(FramesetSource):
         self.depth_noise_std = depth_noise_std
         self.hole_fraction = hole_fraction
         self.jitter = timestamp_jitter_s
+        self.motion = motion
         self.rng = np.random.default_rng(seed)
         self.frame_idx = 0
         self.start_time = start_time
@@ -96,13 +100,16 @@ class SyntheticSource(FramesetSource):
             },
         }
 
+    def _pose(self) -> np.ndarray:
+        return self.motion(self.frame_idx) if self.motion else self.pose
+
     def next_frame(self) -> HostFrameset:
         t = self.start_time + self.frame_idx / self.fps
         if self.jitter > 0:
             t += float(self.rng.normal(0, self.jitter))
         fs = self.scene.render(
             self._intr,
-            self.pose,
+            self._pose(),
             timestamp=t,
             depth_noise_std=self.depth_noise_std,
             hole_fraction=self.hole_fraction,
@@ -130,8 +137,8 @@ class NativeSyntheticSource(SyntheticSource):
         intr = self._intr
         depth, color = render_scene_native(
             intr.width, intr.height, float(intr.fx), float(intr.fy), float(intr.ppx),
-            float(intr.ppy), self.pose, scene.plane_z, spheres, scene.checker_period,
-            scene.max_depth, 0.001,
+            float(intr.ppy), np.asarray(self._pose()), scene.plane_z, spheres,
+            scene.checker_period, scene.max_depth, 0.001,
             noise_std=self.depth_noise_std,
             hole_fraction=self.hole_fraction,
             seed=int(self.rng.integers(0, 2**62)),

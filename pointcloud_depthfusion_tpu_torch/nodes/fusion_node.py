@@ -171,6 +171,54 @@ class FusionNodeApp:
         self._pending: Optional[tuple] = None
         self._last_sync_time: Optional[float] = None
 
+    # -- dynamic reconfiguration ------------------------------------------
+
+    def attach_config(self, cfg) -> None:
+        """Wire a ConfigTree for runtime debug and profiling toggles.
+
+        The reference dispatches ``debug.*`` and ``profiling.*`` updates
+        while the node runs (parametersCallback, config.cpp:118-137): here
+        ``cfg.set("debug.save_data", True)`` starts the PNG dumps between
+        frames, ``profiling.enable_profiling`` switches the stage-timing
+        mode (``process_profiled`` and the StageLog CSV at
+        ``profiling.log_path``) on or off, and ``profiling.publish_fps``
+        the FpsCounter's publication.
+        """
+        self.node_config = cfg
+        default_dir = self.save_data_dir or "fusion_debug"
+        if bool(cfg.declare("debug.save_data", self.save_data_dir is not None)):
+            self.save_data_dir = str(cfg.declare("debug.save_data_dir", default_dir))
+        else:
+            cfg.declare("debug.save_data_dir", default_dir)
+        self.fps_counter.publish = bool(
+            cfg.declare("profiling.publish_fps", self.fps_counter.publish))
+        prof_path = str(cfg.declare(
+            "profiling.log_path",
+            self.stage_log.path if self.stage_log else "fusion_profiling.csv"))
+        if bool(cfg.declare("profiling.enable_profiling", self.stage_log is not None)) \
+                and self.stage_log is None:
+            self.stage_log = StageLog(prof_path)
+
+        def on_change(key: str, value) -> None:
+            truthy = CameraNode._coerce_option(True, value)
+            if key == "debug.save_data":
+                self.save_data_dir = (str(self.node_config.get("debug.save_data_dir", default_dir))
+                                      if truthy else None)
+            elif key == "debug.save_data_dir":
+                if self.save_data_dir is not None:
+                    self.save_data_dir = str(value)
+            elif key == "profiling.enable_profiling":
+                if truthy and self.stage_log is None:
+                    self.stage_log = StageLog(
+                        str(self.node_config.get("profiling.log_path", prof_path)))
+                elif not truthy and self.stage_log is not None:
+                    self.stage_log.flush()
+                    self.stage_log = None
+            elif key == "profiling.publish_fps":
+                self.fps_counter.publish = truthy
+
+        cfg.on_change(on_change)
+
     # -- topic-equivalents -------------------------------------------------
 
     def subscribe_fused(self, cb: Callable[[np.ndarray, float], None]) -> None:

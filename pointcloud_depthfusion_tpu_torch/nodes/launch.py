@@ -22,10 +22,11 @@ Manifest schema (see the JAX module; all sections optional but
       frames: 60            # stop after N fused frames (0 = until EOS)
       cameras:
         - name: camera_left
-          source: synthetic         # synthetic | /x.npz (a recording)
+          source: synthetic         # synthetic | tcp://host:port | /x.npz (a recording)
           seed: 10                  # synthetic only
           pose: left                # left | right, an index, or [tx, ty, tz, yaw_deg]
           config: cam_override.yaml # camera_default.yaml override tier
+          serve: 127.0.0.1:0        # also publish this camera over TCP (port 0: any)
       fusion:
         config: fusion_override.yaml
       registration:
@@ -42,14 +43,23 @@ recording (``io.recorded.RecordedSource``, looped) with the camera node's
 temporal filter off: the recording already carries it. Record one with
 ``python -m pointcloud_depthfusion_tpu_torch.nodes.camera_node --out x.npz``.
 
-Not ported (ROADMAP A11): ``source: tcp://…`` and ``serve:`` (the
-``io/network.py`` copy).
+``tcp://host:port`` reads a remote camera host (the ``io.network`` or
+``io.realsense_host`` server of either package) through
+``io.network.NetworkSource``, with the camera node's temporal filter as
+``camera_default.yaml`` sets it, as the JAX launcher does (so a served
+camera's frames are filtered twice, ROADMAP queue C). ``serve:``
+publishes a camera's filtered framesets over TCP as well, through a
+subscription tee, so the local fusion tier and the remote client both see
+every frame the camera captures; ``served_ports`` in the summary lists the
+ports bound.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import queue
+import threading
 import time
 from typing import Optional
 
@@ -68,6 +78,47 @@ def load_manifest(path: str) -> dict:
     if not isinstance(manifest, dict) or "cameras" not in manifest:
         raise ValueError(f"{path}: manifest needs a 'deployment:' mapping with a 'cameras:' list")
     return manifest
+
+
+class _TeeSource:
+    """FramesetSource view of a CameraNode's published frameset stream.
+
+    A camera with ``serve:`` has two consumers: the local fusion feeder and
+    the TCP server. Pulling the CameraNode from both would give each every
+    other frame and race the temporal filter's state across threads, so the
+    server reads this tee, fed by the camera's publish fan-out: every frame
+    the local consumer captures reaches both (the reference's one capture
+    loop with many subscribers, camera_node.cpp:338-343). Its bounded
+    keep-last queue drops the oldest frame for a slow remote client and
+    never stalls the local capture."""
+
+    def __init__(self, cam, depth: int = 4):
+        self._q: "queue.Queue" = queue.Queue(depth)
+        self._closed = threading.Event()
+        self.intrinsics = cam.intrinsics
+        cam.subscribe_frameset(self._on_frame)
+
+    def _on_frame(self, fs) -> None:
+        while True:
+            try:
+                self._q.put_nowait(fs)
+                return
+            except queue.Full:  # drop the oldest (keep-last QoS)
+                try:
+                    self._q.get_nowait()
+                except queue.Empty:
+                    pass
+
+    def next_frame(self):
+        while not self._closed.is_set():
+            try:
+                return self._q.get(timeout=0.2)
+            except queue.Empty:
+                continue
+        return None
+
+    def close(self) -> None:
+        self._closed.set()
 
 
 def _camera_pose(spec, index: int, n: int) -> np.ndarray:
@@ -97,9 +148,11 @@ def _camera_pose(spec, index: int, n: int) -> np.ndarray:
     return rig_arc_poses(n, span=0.8, toe_in_deg_per_m=37.5)[int(pose)]
 
 
-def _build_camera(spec: dict, index: int, n: int, width: int, height: int):
-    """One manifest camera entry → a CameraNode over a synthetic source or
-    a recording."""
+def _build_camera(spec: dict, index: int, n: int, width: int, height: int,
+                  servers: Optional[list] = None):
+    """One manifest camera entry → a CameraNode over a synthetic source, a
+    remote camera host or a recording; with ``serve:``, its TCP server is
+    started and appended to ``servers``."""
     from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
     from pointcloud_depthfusion_tpu_torch.io.feeder import NativeSyntheticSource, SyntheticSource
     from pointcloud_depthfusion_tpu_torch.io.recorded import RecordedSource
@@ -110,15 +163,12 @@ def _build_camera(spec: dict, index: int, n: int, width: int, height: int):
 
     name = spec.get("name", f"camera_{index}")
     kind = str(spec.get("source", "synthetic"))
-    if kind.startswith("tcp://"):
-        raise NotImplementedError(
-            f"camera {name!r}: remote tcp:// sources ({kind}) are not ported yet (ROADMAP A11: "
-            "the io/network.py copy)")
-    if spec.get("serve"):
-        raise NotImplementedError(
-            f"camera {name!r}: serve: is not ported yet (ROADMAP A11: the io/network.py copy)")
     pose = None
-    if kind != "synthetic":
+    if kind.startswith("tcp://"):
+        from pointcloud_depthfusion_tpu_torch.io.network import NetworkSource, parse_tcp_source
+
+        source = NetworkSource(*parse_tcp_source(kind))
+    elif kind != "synthetic":
         # A path: replay a recording. It already carries its capture
         # path's temporal EMA; filtering again would double it.
         source = RecordedSource(kind, loop=True)
@@ -135,15 +185,30 @@ def _build_camera(spec: dict, index: int, n: int, width: int, height: int):
         )
     cam = CameraNode(name, source)
     cam.attach_config(factory.camera_config(name, spec.get("config")))
-    if pose is None:
+    if isinstance(source, RecordedSource):
         # Set through the tree, after it is attached: camera_default.yaml
         # turns the filter on for camera_left and camera_right, which
         # overrides a constructor argument (the JAX launcher's, ROADMAP
-        # queue C).
+        # queue C). A tcp:// camera keeps the filter as the tree sets it,
+        # as in the JAX launcher.
         cam.config.set("sensor.depth.temporal_filter", False)
     # The rig tier seeds its calibration from the true synthetic poses;
-    # a recording has none.
+    # a recording or a remote camera has none.
     cam.launch_pose = pose
+
+    serve = spec.get("serve")
+    if serve:
+        if servers is None:
+            raise ValueError(f"camera {name!r}: serve: needs a list to hand its server to")
+        # The server reads a subscription tee, not the CameraNode, which
+        # the local fusion feeder already pulls.
+        from pointcloud_depthfusion_tpu_torch.io.network import FramesetStreamServer
+
+        host, _, port = str(serve).partition(":")
+        srv = FramesetStreamServer(_TeeSource(cam), host=host or "127.0.0.1",
+                                   port=int(port or 0), name=name)
+        srv.start()
+        servers.append(srv)
     return cam
 
 
@@ -169,24 +234,36 @@ def run_deployment(manifest: dict, cpu: bool = False, frames: Optional[int] = No
     if len(cam_specs) < 2:
         raise ValueError("a deployment needs at least 2 cameras")
 
+    servers: list = []
     fused = []
     t0 = time.perf_counter()
-    cameras = [_build_camera(spec, i, len(cam_specs), width, height)
-               for i, spec in enumerate(cam_specs)]
-    fusion_section = manifest.get("fusion") or {}
-    reg_section = manifest.get("registration") or {}
-    reg_every = int(reg_section.get("every_n_frames", 15))
-    viewer_section = manifest.get("viewer") or {}
-    sink = None
-    if viewer_section.get("out_dir"):
-        sink = ImageNode(out_dir=str(viewer_section["out_dir"]),
-                         every_n=int(viewer_section.get("every_n", 8)))
-    if len(cameras) == 2:
-        frames_done, reg = _run_dual(cameras, fusion_section, reg_section, reg_every,
-                                     sink, fused, max_frames, device)
-    else:
-        frames_done, reg = _run_rig(cameras, fusion_section, reg_every, sink, fused,
-                                    max_frames, device)
+    # The try covers construction too: a camera that raises while it is
+    # built (an unreachable tcp:// peer, a bad recording path) must not leak
+    # the servers the cameras before it started.
+    try:
+        cameras = [_build_camera(spec, i, len(cam_specs), width, height, servers)
+                   for i, spec in enumerate(cam_specs)]
+        fusion_section = manifest.get("fusion") or {}
+        reg_section = manifest.get("registration") or {}
+        reg_every = int(reg_section.get("every_n_frames", 15))
+        viewer_section = manifest.get("viewer") or {}
+        sink = None
+        if viewer_section.get("out_dir"):
+            sink = ImageNode(out_dir=str(viewer_section["out_dir"]),
+                             every_n=int(viewer_section.get("every_n", 8)))
+        if len(cameras) == 2:
+            frames_done, reg = _run_dual(cameras, fusion_section, reg_section, reg_every,
+                                         sink, fused, max_frames, device)
+        else:
+            frames_done, reg = _run_rig(cameras, fusion_section, reg_every, sink, fused,
+                                        max_frames, device)
+    finally:
+        for srv in servers:
+            # Close the tee first: its server's producer otherwise waits
+            # for frames that stopped coming, and stop() would spend its
+            # whole join timeout on each served camera.
+            srv.source.close()
+            srv.stop()
     wall = time.perf_counter() - t0
     telemetry = reg.pipeline.telemetry if reg is not None else []
     return {
@@ -198,7 +275,7 @@ def run_deployment(manifest: dict, cpu: bool = False, frames: Optional[int] = No
         "fused_coverage": round(float((fused[-1].sum(-1) > 0).mean()), 3) if fused else None,
         "registration_fitness": float(telemetry[-1].fitness) if telemetry else None,
         "saved_pngs": sink.saved if sink else 0,
-        "served_ports": [],
+        "served_ports": [srv.port for srv in servers],
         # The port's own keys: the device, and the registration service's
         # ticks, target-grid rebuilds and last transform (dual tier).
         "device": str(device),

@@ -233,7 +233,8 @@ def test_dual_deployment_matches_jax(tmp_path, monkeypatch, native):
 def test_rig_deployment_and_unported_sources(tmp_path, monkeypatch):
     """Three cameras compose the rig tier on RigFusionNodeApp; with a
     recording among them the rig starts from the identity calibration;
-    tcp:// and serve: raise naming the roadmap item."""
+    a tcp:// camera (a camera host serving that recording) and a served
+    camera run in the rig too, and served_ports names the bound port."""
     m = {"width": 64, "height": 48,
          "cameras": [{"name": f"cam{i}", "source": "synthetic", "seed": 10 + i, "pose": i}
                      for i in range(3)],
@@ -259,10 +260,17 @@ def test_rig_deployment_and_unported_sources(tmp_path, monkeypatch):
     s = TL.run_deployment(replayed, device="cpu", frames=2)
     assert (s["tier"], s["frames"], s["fused_shape"]) == ("rig", 2, [48, 64, 3])
     np.testing.assert_array_equal(initial[-1], np.eye(4, dtype=np.float32)[None].repeat(3, 0))
-    for extra in ({"source": "tcp://camhost:7447"}, {"serve": "127.0.0.1:0"}):
-        bad = dict(m, cameras=[dict(m["cameras"][0], **extra)] + m["cameras"][1:])
-        with pytest.raises(NotImplementedError, match="A11"):
-            TL.run_deployment(bad, device="cpu", frames=1)
+    from pointcloud_depthfusion_tpu_torch.io.network import FramesetStreamServer
+    from pointcloud_depthfusion_tpu_torch.io.recorded import RecordedSource
+
+    with FramesetStreamServer(RecordedSource(rec, loop=True), fps=0.0, queue_size=8,
+                              max_frames=2) as server:
+        remote = dict(m, cameras=[dict(m["cameras"][0], source=f"tcp://127.0.0.1:{server.port}"),
+                                  dict(m["cameras"][1], serve="127.0.0.1:0"), m["cameras"][2]])
+        s = TL.run_deployment(remote, device="cpu", frames=2)
+    assert (s["tier"], s["frames"], s["fused_shape"]) == ("rig", 2, [48, 64, 3])
+    assert len(s["served_ports"]) == 1 and s["served_ports"][0] > 0
+    np.testing.assert_array_equal(initial[-1], np.eye(4, dtype=np.float32)[None].repeat(3, 0))
     with pytest.raises(ValueError, match="at least 2"):
         TL.run_deployment({"cameras": m["cameras"][:1]}, device="cpu")
     bad_yaml = tmp_path / "bad.yaml"

@@ -26,22 +26,32 @@ def _port_modules():
 
 
 def test_port_imports_no_jax():
+    """Importing every port module, and resolving every pdf-torch-* console
+    script, loads no jax, builds nothing and initialises no CUDA."""
+    import tomllib
+
     mods = _port_modules()
     for m in ("fusion.pipeline", "parallel.mesh", "io.feeder", "nodes.rig_node",
               "utils.profiling", "io.artifacts", "ops.cuda.morph_cuda", "ops.host_filters",
               "nodes.camera_node", "nodes.fusion_node", "nodes.registration_node",
               "nodes.image_node", "nodes.launch", "utils.factory", "runtime.bindings",
-              "io.recorded", "io.encoded"):
+              "io.recorded", "io.encoded", "io.network", "io.realsense_host", "nodes.demo"):
         assert f"pointcloud_depthfusion_tpu_torch.{m}" in mods, m
+    with open(REPO / "pyproject.toml", "rb") as fh:
+        scripts = sorted(v for k, v in tomllib.load(fh)["project"]["scripts"].items()
+                         if k.startswith("pdf-torch-"))
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"for t in {scripts!r}:\n"
+        "    m, _, fn = t.partition(':'); assert callable(getattr(sys.modules[m], fn)), t\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('pointcloud_depthfusion_tpu.') or m == 'pointcloud_depthfusion_tpu')\n"
         "print(len(sys.modules)); assert not bad, bad\n"
         "from pointcloud_depthfusion_tpu_torch.runtime import bindings\n"
         "from pointcloud_depthfusion_tpu_torch.ops.cuda import _build\n"
         "assert bindings._lib is None and _build._lib is None, 'an import built a library'\n"
+        "import torch; assert not torch.cuda.is_initialized()\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

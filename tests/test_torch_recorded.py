@@ -137,8 +137,9 @@ def test_camera_node_main_matches_jax(tmp_path, monkeypatch, ext):
 
 
 def test_camera_node_main_replays_a_recording(tmp_path, monkeypatch, capsys):
-    """--source replays a recording unfiltered, looping past its end;
-    tcp:// raises naming the roadmap item."""
+    """--source replays a recording unfiltered, looping past its end; the
+    same recording served by a camera host records again through
+    --source tcp://, unfiltered too."""
     rec, again = str(tmp_path / "rec.npz"), str(tmp_path / "again.npz")
     _main(TCamNode, monkeypatch, "--width", "40", "--height", "30", "--frames", "2",
           "--out", rec)
@@ -148,8 +149,17 @@ def test_camera_node_main_replays_a_recording(tmp_path, monkeypatch, capsys):
         np.testing.assert_array_equal(b["depth"], a["depth"][[0, 1, 0]])
         np.testing.assert_array_equal(b["intrinsics"], a["intrinsics"])
         assert b["timestamps"][2] == pytest.approx(a["timestamps"][1] + 1 / 30.0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        _main(TCamNode, monkeypatch, "--source", "tcp://camhost:7447", "--frames", "1")
+    from pointcloud_depthfusion_tpu_torch.io.network import FramesetStreamServer
+
+    remote = str(tmp_path / "remote.npz")
+    with FramesetStreamServer(TRec.RecordedSource(rec, loop=True), fps=0.0, queue_size=8,
+                              max_frames=3) as server:
+        _main(TCamNode, monkeypatch, "--source", f"tcp://127.0.0.1:{server.port}",
+              "--frames", "3", "--out", remote)
+    assert "captured 3 frames @ 40x30" in capsys.readouterr().out
+    with np.load(again) as a, np.load(remote) as b:
+        for k in ("depth", "color", "timestamps", "depth_scale"):
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
 
 def test_recorded_dual_deployment(tmp_path, monkeypatch):
