@@ -49,7 +49,17 @@ before and read just after:
         then png) serve ``run_deployment``'s ``tcp://`` cameras over TCP at
         1280×720, card against CPU on the pairs the card fused, the hosts
         never initialising CUDA; ``serve:`` with a remote client; and the
-        demo as a process of its own on the card.
+        demo as a process of its own on the card;
+  [14]  the multi-GPU tier on the one card: ``rig_fuse_sharded`` over 2 and
+        4 shards on ``cuda:0`` (8×848×480, per-camera intrinsics and ROIs,
+        tiled with the z-buffer and packed) bit-exact to ``rig_fuse`` and
+        against the CPU, ``RigFusionNodeApp(mesh=)``,
+        ``gicp_register_sharded`` against ``gicp_register`` on the dual
+        1280×720 clouds, ``gicp_register_batched`` and
+        ``register_rig_pairs`` bit-identical to sequential solves, the
+        ``parallel.multihost`` worker as one NCCL process, ``PointCloud``
+        at 1280×720 against the CPU, and ``solver="matrix"`` against the
+        planar solver.
 
 It times frames, ticks and kernels with CUDA events and a host clock ending
 in ``synchronize()`` (the resolve, B3 and the scatter-min also by the
@@ -247,6 +257,27 @@ TWO_HOST_CMP_PAIRS = 3
 TWO_HOST_CODECS = ("raw", "png")
 HOST_START_S = 120.0
 DEMO_ARGS = ("--frames", "30", "--width", "1280", "--height", "720", "--sway", "0.05")
+# Phase 14, the multi-GPU tier on one card: rig_fuse_sharded on the
+# SHARD_RIG rig (every camera with intrinsics of its own and RIG_ROIS) over
+# make_camera_mesh(s) for s in SHARD_COUNTS, SHARD_FRAMES frames, tiled with
+# the z-buffer and packed; RigFusionNodeApp over a SHARD_NODE_MESH-shard mesh
+# on SHARD_NODE_FRAMES prerendered frames of the SHARD_NODE rig;
+# gicp_register_sharded over SHARD_SOLVE shards on the dual 1280×720 clouds
+# with the shipped settings' fine stage; gicp_register_batched and
+# register_rig_pairs on the BATCHED_RIG rig's cameras; the multihost worker as
+# one NCCL process at MULTIHOST_SIZE; PointCloud at POINTCLOUD_SIZE; and the
+# matrix solver against the planar one on the dual 1280×720 clouds.
+SHARD_RIG = (8, 848, 480)
+SHARD_COUNTS = (2, 4)
+SHARD_FRAMES = 2
+SHARD_NODE = (4, 848, 480)
+SHARD_NODE_MESH = 2
+SHARD_NODE_FRAMES = 8
+SHARD_SOLVE = 2
+BATCHED_RIG = (4, 848, 480)
+MULTIHOST_SIZE = (1280, 720)
+MULTIHOST_BACKEND = "nccl"  # one process on the card; "gloo": one CPU shard
+POINTCLOUD_SIZE = (1280, 720)
 # Phase 3: the image kernel's (H, W): the fused frames' (vertical) and
 # landscape shapes at both sizes, odd widths, and images under 3×3; its
 # modes by launch counter.
@@ -1824,10 +1855,11 @@ class Rig:
     poses: np.ndarray  # (n, 4, 4) camera→world truth
 
 
-def rig_intrinsics(w: int, h: int, per_camera: bool = False, device="cpu"):
-    """The bench camera (fx = 631·w/848), or RIG_CAMERAS per-camera
-    variants of it under the inverse Brown-Conrady model, camera 1 with
-    real coefficients (the heterogeneous rig of tests/test_torch_rig.py)."""
+def rig_intrinsics(w: int, h: int, per_camera: bool = False, device="cpu",
+                   n: int = RIG_CAMERAS):
+    """The bench camera (fx = 631·w/848), or ``n`` per-camera variants of
+    it under the inverse Brown-Conrady model, camera 1 with real
+    coefficients (the heterogeneous rig of tests/test_torch_rig.py)."""
     from pointcloud_depthfusion_tpu_torch.core.camera import Distortion, Intrinsics
 
     fx = 631.0 * w / 848.0
@@ -1837,7 +1869,7 @@ def rig_intrinsics(w: int, h: int, per_camera: bool = False, device="cpu"):
                               ppx=w / 2 + 1.5 * (i - 1), ppy=h / 2 - i,
                               model=Distortion.INVERSE_BROWN_CONRADY,
                               coeffs=RIG_BC_COEFFS if i == 1 else (0.0,) * 5, device=device)
-            for i in range(RIG_CAMERAS)]
+            for i in range(n)]
 
 
 def render_arc(n: int, w: int, h: int, n_frames: int, seed0: int, seed_step: int) -> tuple:
@@ -3407,6 +3439,389 @@ def phase_filters_and_deployment(scenes, card: str, errs: dict) -> tuple:
     return launches, rows, metrics
 
 
+# -- phase 14: the multi-GPU tier on one card ---------------------------------
+
+
+def card_mesh(shards: int, device, axis: str = "cam"):
+    """make_camera_mesh(shards): on the card its default (every shard on
+    the one card's ``cuda:0``), elsewhere on ``device``."""
+    from pointcloud_depthfusion_tpu_torch.parallel.mesh import make_camera_mesh
+
+    if device == "cuda":
+        return make_camera_mesh(shards, axis)
+    return make_camera_mesh(shards, axis, device=device)
+
+
+def sharded_step(rig: Rig, mode: str, device, shards: int):
+    """The per-camera rig step of ``rig`` (RIG_ROIS on every camera, tiled
+    with the z-buffer or packed): rig_fuse_sharded over ``shards`` shards,
+    or rig_fuse with ``shards`` = 0."""
+    from pointcloud_depthfusion_tpu_torch.core.camera import fused_virtual_intrinsics
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
+    from pointcloud_depthfusion_tpu_torch.parallel.mesh import rig_fuse, rig_fuse_sharded
+
+    cfg = FusionConfig.create(render_mode=mode, device=device, **RIG_CONFIG)
+    intr = rig_intrinsics(rig.w, rig.h, True, n=rig.n)
+    fused = fused_virtual_intrinsics(intr[0], False)
+    rois = (RIG_ROIS * rig.n)[:rig.n]
+    if not shards:
+        return rig_fuse(intr, fused, cfg, rois=rois, device=device)
+    return rig_fuse_sharded(card_mesh(shards, device), intr, fused, cfg, rois=rois)
+
+
+def drive_sharded_rig(rig: Rig, tag: str) -> dict:
+    """(a) rig_fuse_sharded over each mesh of SHARD_COUNTS, tiled and
+    packed: bit-exact to rig_fuse on the card, and against the CPU's
+    sharded step within the rig's bars. Returns the expected launches."""
+    expected: dict = {}
+
+    def add(name, v):
+        expected[name] = expected.get(name, 0) + v
+
+    for mode in ("tiled", "packed"):
+        resolve = "scatter_min_u32" if mode == "packed" else "zresolve_sorted_entries"
+        one = sharded_step(rig, mode, DEVICE, 0)
+        cpu = sharded_step(rig, mode, "cpu", SHARD_COUNTS[0])
+        steps = {s: sharded_step(rig, mode, DEVICE, s) for s in SHARD_COUNTS}
+        for k in range(len(rig.frames)):
+            want = one(*rig_args(rig, k, DEVICE))
+            ic = cpu(*rig_args(rig, k, "cpu"))
+            for name in ("fuse_prep", resolve, "color_image"):
+                add(name, 1)
+            for s, fn in steps.items():
+                ig = fn(*rig_args(rig, k, DEVICE))
+                torch.cuda.synchronize()
+                same = torch.equal(ig, want)
+                names, fr, ok = rig_mismatch(ig, ic, mode)
+                coverage = float(ig.any(-1).float().mean())
+                log(f"[14a {tag}] {mode} over {s} shards frame {k}: coverage={coverage:.4f}, "
+                    f"bit-exact to rig_fuse on the card: {same}; vs CPU: "
+                    + " ".join(f"{n}={v:.6g}" for n, v in zip(names, fr)))
+                if not same or not ok or coverage < 0.5:
+                    raise AssertionError(f"sharded {tag} {mode} s={s} frame {k}: equal {same}, "
+                                         f"vs CPU {fr}, coverage {coverage}")
+                for name in ("fuse_prep", resolve):
+                    add(name, s)
+                add("color_image", 1)
+    return expected
+
+
+def time_sharded_rig(rig: Rig, card: str, iters: int = 10, warmup: int = 2) -> dict:
+    """ms/frame of rig_fuse and of rig_fuse_sharded over each mesh (CUDA
+    events), each frame new tensors."""
+    out = {}
+    for mode in ("tiled", "packed"):
+        for s in (0, *SHARD_COUNTS):
+            fn = sharded_step(rig, mode, DEVICE, s)
+            frames = fresh_rig_args(rig, iters + warmup, DEVICE)
+            key = f"{'rig_fuse' if not s else f'sharded_{s}'}_{rig.n}x{rig.w}x{rig.h}_{mode}"
+            out[key] = cuda_ms(lambda: fn(*next(frames)), iters, warmup)
+    log(f"[14a] ms/frame (CUDA events, {iters} frames after {warmup} warm-up) "
+        f"{json.dumps(out)} on {card}")
+    return out
+
+
+def drive_sharded_node(card: str) -> tuple:
+    """(b) RigFusionNodeApp(mesh=) over SHARD_NODE_FRAMES prerendered frames:
+    every fused image equal to rig_fuse's (z-buffer) on the same host
+    frames. Returns (expected launches, {metric: value})."""
+    from pointcloud_depthfusion_tpu_torch.nodes.rig_node import RigFusionNodeApp
+    from pointcloud_depthfusion_tpu_torch.parallel.mesh import rig_fuse
+
+    n, w, h = SHARD_NODE
+    intr = rig_intrinsics(w, h)
+    poses, rendered = render_arc(n, w, h, SHARD_NODE_FRAMES, 2000, 10)
+    streams = [[fs[i] for fs in rendered] for i in range(n)]
+    app = RigFusionNodeApp([ReplaySource(s, intr) for s in streams], intr,
+                           poses.astype(np.float32), mesh=card_mesh(SHARD_NODE_MESH, DEVICE))
+    images, host = [], []
+    fuse_one = app.process_batch
+
+    def process(batch):
+        host.append(batch.host_frames)
+        images.append(fuse_one(batch))
+        return images[-1]
+
+    app.process_batch = process
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = app.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    one = rig_fuse(intr, app.fused_intrinsics, app.config, device=DEVICE)
+    c2v = torch.from_numpy(poses.astype(np.float32)).to(DEVICE)
+    same = []
+    for img, frames in zip(images, host):
+        d = torch.from_numpy(np.stack([f.depth for f in frames]).astype(np.int32)).to(DEVICE)
+        c = torch.from_numpy(np.stack([f.color for f in frames])).to(DEVICE)
+        s = torch.tensor([f.depth_scale for f in frames], dtype=torch.float32, device=DEVICE)
+        same.append(np.array_equal(img, one(d, c, s, c2v).cpu().numpy()))
+    log(f"[14b] RigFusionNodeApp over a {SHARD_NODE_MESH}-shard mesh: {done} frames of "
+        f"{n}x{w}x{h} in {wall:.3f} s ({done / wall:.3f} frames/s, no sweeps), z-buffer "
+        f"{app.config.emit_zbuf}, each frame equal to rig_fuse on the card: {all(same)} on {card}")
+    if done != SHARD_NODE_FRAMES or not all(same) or not app.config.emit_zbuf:
+        raise AssertionError(f"sharded node: {done} frames, equal {same}")
+    per = {"fuse_prep": SHARD_NODE_MESH + 1, "zresolve_sorted_entries": SHARD_NODE_MESH + 1,
+           "color_image": 2}
+    return ({k: v * done for k, v in per.items()},
+            {f"sharded_node_{n}x{w}x{h}_fps": done / wall})
+
+
+def registration_pair_clouds(scene: Scene, settings) -> tuple:
+    """The dual scene's right and left registration clouds (the tick's own
+    cloud program) and the shipped settings' fine-stage GICPConfig."""
+    from pointcloud_depthfusion_tpu_torch.registration.pipeline import RegistrationPipeline
+
+    fine = dataclasses.replace(settings, adjust_resolution=False)
+    intr, _ = framesets(scene, DEVICE)
+    pipe = RegistrationPipeline(intr, intr, fine, device=DEVICE)
+    scale = torch.tensor(0.001, device=DEVICE)
+    clouds = [pipe._cloud_fn(side)(torch.from_numpy(f.depth.astype(np.int32)).to(DEVICE),
+                                   scale)[:2]
+              for side, f in (("right", scene.frames[0][1]), ("left", scene.frames[0][0]))]
+    return clouds, pipe._make_config()
+
+
+def solve_timed(fn) -> tuple:
+    """(result, host ms ending in synchronize, B5 launches)."""
+    before = read_launches()["segsum_sorted"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3, read_launches()["segsum_sorted"] - before
+
+
+def result_text(res) -> str:
+    return (f"iterations {int(res.iterations)}, converged {bool(res.converged)}, fitness "
+            f"{float(res.fitness):.6g}, correspondences {int(res.num_correspondences)}")
+
+
+def drive_sharded_solve(scene: Scene, settings, card: str) -> tuple:
+    """(c) gicp_register_sharded over SHARD_SOLVE shards against
+    gicp_register on the card (within TRANSFORM_ATOL), and (f) the matrix
+    solver against the planar one with direct1. Returns (B5 launches,
+    {metric: value})."""
+    from pointcloud_depthfusion_tpu_torch.registration.distributed import gicp_register_sharded
+    from pointcloud_depthfusion_tpu_torch.registration.gicp import gicp_register
+
+    (src, sval), (tgt, tval) = registration_pair_clouds(scene, settings)[0]
+    cfg = registration_pair_clouds(scene, settings)[1]
+    init = torch.from_numpy(scene.t_rl2).to(DEVICE)
+    size = f"{scene.w}x{scene.h}"
+    metrics, n_b5 = {}, 0
+    for rep in range(2):  # the first call of each warms the allocator
+        single, single_ms, b5_single = solve_timed(
+            lambda: gicp_register(src, sval, tgt, tval, init, cfg))
+        sharded, sharded_ms, b5_sharded = solve_timed(lambda: gicp_register_sharded(
+            card_mesh(SHARD_SOLVE, DEVICE, "pt"), src, sval, tgt, tval, init, cfg))
+        n_b5 += b5_single + b5_sharded
+    diff = float((sharded.transform - single.transform).abs().max())
+    t_err = truth_error(sharded.transform.cpu().numpy(), scene.t_rl)
+    log(f"[14c] gicp_register_sharded over {SHARD_SOLVE} shards, dual {size} clouds "
+        f"({src.shape[0]} and {tgt.shape[0]} points, {cfg.neighbor_search}, resolution "
+        f"{float(cfg.resolution)}): max|d| vs gicp_register on the card {diff:.3g} (bar "
+        f"{TRANSFORM_ATOL}); sharded {result_text(sharded)}; single {result_text(single)}; "
+        f"vs truth {t_err}; {sharded_ms:.3f} ms against {single_ms:.3f} ms (host clock ending in "
+        f"synchronize, second call); B5 launches {b5_sharded} and {b5_single} on {card}")
+    if diff > TRANSFORM_ATOL or b5_sharded != b5_single or b5_single < 1:
+        raise AssertionError(f"sharded solve: max|d| {diff}, B5 {b5_sharded} vs {b5_single}")
+    metrics.update({f"sharded_solve_{size}_ms": sharded_ms, f"single_solve_{size}_ms": single_ms,
+                    f"sharded_solve_{size}_max_diff": diff})
+    direct1 = dataclasses.replace(cfg, neighbor_search="direct1")
+    matrix_cfg = dataclasses.replace(direct1, solver="matrix")
+    planar, planar_ms, b5_planar = solve_timed(
+        lambda: gicp_register(src, sval, tgt, tval, init, direct1))
+    matrix, matrix_ms, b5_matrix = solve_timed(
+        lambda: gicp_register(src, sval, tgt, tval, init, matrix_cfg))
+    n_b5 += b5_planar + b5_matrix
+    diff = float((matrix.transform - planar.transform).abs().max())
+    log(f"[14f] solver=matrix vs planar (direct1) on the card, dual {size}: max|d| {diff:.3g} "
+        f"(bar {TRANSFORM_ATOL}); matrix {result_text(matrix)}, {matrix_ms:.3f} ms; planar "
+        f"{result_text(planar)}, {planar_ms:.3f} ms (host clock ending in synchronize) on {card}")
+    if diff > TRANSFORM_ATOL or b5_matrix != b5_planar:
+        raise AssertionError(f"matrix solver: max|d| {diff}, B5 {b5_matrix} vs {b5_planar}")
+    metrics.update({f"matrix_solve_{size}_ms": matrix_ms, f"matrix_vs_planar_{size}": diff})
+    return n_b5, metrics
+
+
+def drive_batched_solves(settings, card: str) -> tuple:
+    """(c) gicp_register_batched and register_rig_pairs over 4 shards on the
+    BATCHED_RIG rig's adjacent pairs, each bit-identical to sequential
+    gicp_register calls on the card. Returns (B5 launches, {metric:
+    value})."""
+    from pointcloud_depthfusion_tpu_torch.registration.distributed import (
+        gicp_register_batched, register_rig_pairs,
+    )
+    from pointcloud_depthfusion_tpu_torch.registration.gicp import GICPResult, gicp_register
+    from pointcloud_depthfusion_tpu_torch.registration.pipeline import RegistrationPipeline
+
+    n, w, h = BATCHED_RIG
+    rig = build_rig(n, w, h, n_frames=1)
+    intr = rig_intrinsics(w, h, device=DEVICE)
+    pipe = RegistrationPipeline(intr, intr, dataclasses.replace(settings, adjust_resolution=False),
+                                device=DEVICE)
+    scale = torch.tensor(0.001, device=DEVICE)
+    pts, val = zip(*(pipe._cloud_fn("left")(torch.from_numpy(d).to(DEVICE), scale)[:2]
+                     for d in rig.frames[0][0]))
+    clouds, valids = torch.stack(pts), torch.stack(val)
+    cfg = pipe._make_config()
+    inits = torch.from_numpy(np.stack([
+        np.linalg.inv(rig.poses[i]) @ rig.poses[(i + 1) % n] @ yaw_bump(0.5, 0.01)
+        for i in range(n)]).astype(np.float32)).to(DEVICE)
+    src, sval = torch.roll(clouds, -1, 0), torch.roll(valids, -1, 0)
+    mesh = card_mesh(n, DEVICE, "pair")
+    # The sequential reference first: its first solve also warms the path.
+    seq, seq_ms, b5_seq = solve_timed(lambda: [
+        gicp_register(src[i], sval[i], clouds[i], valids[i], inits[i], cfg) for i in range(n)])
+    batched, batched_ms, b5_batched = solve_timed(
+        lambda: gicp_register_batched(mesh, src, sval, clouds, valids, inits, cfg))
+    rig_res, rig_ms, b5_rig = solve_timed(
+        lambda: register_rig_pairs(mesh, clouds, valids, cfg, inits, cyclic=False))
+    fields = [f.name for f in dataclasses.fields(GICPResult)]
+    same = all(torch.equal(getattr(batched, f)[i], getattr(seq[i], f))
+               for f in fields for i in range(n))
+    same_rig = all(torch.equal(rig_res.transform[i], seq[i].transform) for i in range(n))
+    wrap = not bool(rig_res.converged[n - 1])
+    log(f"[14c] gicp_register_batched over {n} shards, {n} pairs of {w}x{h} clouds "
+        f"({clouds.shape[1]} points): bit-identical to sequential gicp_register: {same}; "
+        f"register_rig_pairs(cyclic=False) transforms identical {same_rig}, wrap pair "
+        f"unconverged {wrap}; iterations {[int(r.iterations) for r in seq]}; sequential "
+        f"{seq_ms:.3f} ms (the first, warming), batched {batched_ms:.3f} ms, rig pairs "
+        f"{rig_ms:.3f} ms (host clock ending in synchronize, one call each); B5 launches "
+        f"{b5_seq}, {b5_batched}, {b5_rig} (sequential, batched, rig pairs) "
+        f"on {card}")
+    if not (same and same_rig and wrap) or not b5_batched == b5_rig == b5_seq > 0:
+        raise AssertionError(f"batched solves: identical {same}/{same_rig}, wrap {wrap}, B5 "
+                             f"{b5_batched}/{b5_rig}/{b5_seq}")
+    return b5_batched + b5_rig + b5_seq, {f"batched_{n}x{w}x{h}_ms": batched_ms,
+                                          f"sequential_{n}x{w}x{h}_ms": seq_ms}
+
+
+def drive_multihost(tmp: str, card: str) -> tuple:
+    """(d) The multihost worker as one NCCL process on the card at
+    MULTIHOST_SIZE: its image equals this process's rig_fuse_sharded over
+    the same one-shard mesh. Returns (expected launches, {metric:
+    value})."""
+    import socket
+
+    from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
+    from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
+    from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene
+    from pointcloud_depthfusion_tpu_torch.parallel.mesh import rig_fuse_sharded
+    from pointcloud_depthfusion_tpu_torch.parallel.multihost import rig_poses
+
+    w, h = MULTIHOST_SIZE
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    out = os.path.join(tmp, "multihost.npy")
+    cmd = [sys.executable, "-m", "pointcloud_depthfusion_tpu_torch.parallel.multihost",
+           "--coordinator", f"localhost:{port}", "--num-processes", "1", "--process-id", "0",
+           "--local-devices", "0" if MULTIHOST_BACKEND == "nccl" else "1",
+           "--width", str(w), "--height", str(h), "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    summary = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+    host = Intrinsics.create(w, h, fx=50.0 * w / 64, fy=50.0 * w / 64, ppx=w / 2, ppy=h / 2,
+                             device="cpu")
+    pose = rig_poses(0, 1, 1)[0]
+    f = SyntheticScene().render(host, pose)
+    cfg = FusionConfig.create(vertical_image=False, mirror_image=False, filter_fused_color=False,
+                              device=DEVICE)
+    intr = host.to(DEVICE)
+    want = rig_fuse_sharded(card_mesh(1, DEVICE), intr, intr, cfg)(
+        torch.from_numpy(f.depth.astype(np.int32)[None]).to(DEVICE),
+        torch.from_numpy(f.color[None]).to(DEVICE),
+        torch.full((1,), 0.001, device=DEVICE), torch.from_numpy(pose[None]).to(DEVICE))
+    same = proc.returncode == 0 and np.array_equal(np.load(out), want.cpu().numpy())
+    log(f"[14d] multihost worker ({' '.join(cmd[3:-2])}): exit "
+        f"{proc.returncode} in {wall:.3f} s (process start included); {json.dumps(summary)}; "
+        f"image equal to the single-process sharded step: {same} on {card}")
+    if not same or summary.get("backend") != MULTIHOST_BACKEND:
+        raise AssertionError(f"multihost: exit {proc.returncode}, {summary}, equal {same}, "
+                             f"stdout {proc.stdout[-2000:]!r}, stderr {proc.stderr[-3000:]!r}")
+    return ({"fuse_prep": 1, "zresolve_sorted_entries": 1, "color_image": 1},
+            {"multihost_nccl_wall_s": wall})
+
+
+def drive_pointcloud(scene: Scene, card: str) -> dict:
+    """(e) PointCloud at the scene's size: deproject (0.5–3 m), transform
+    by the scene's right→left pose and project (exact, packed) on the card
+    against the CPU. Returns the expected launches."""
+    from pointcloud_depthfusion_tpu_torch.core.pointcloud import PointCloud
+
+    (intr, pairs), (intr_c, pairs_c) = framesets(scene, DEVICE), framesets(scene, "cpu")
+    t = scene.t_rl
+    clouds = [PointCloud.deproject(p[0][0], 0.5, 3.0).transform(t) for p in (pairs, pairs_c)]
+    (gc, cc) = clouds
+    pts_err = float((gc.points.cpu() - cc.points).abs().max())
+    same_valid = torch.equal(gc.valid.cpu(), cc.valid)
+    parts = [f"{int(gc.count())} of {gc.capacity} points valid (CPU {int(cc.count())}), points "
+             f"max|d| {pts_err:.3g}, masks equal {same_valid}"]
+    ok = same_valid and pts_err <= 1e-4
+    expected = {}
+    for mode in ("exact", "packed"):
+        ig, zg = gc.project(intr, mode=mode)
+        ic, zc = cc.project(intr_c, mode=mode)
+        torch.cuda.synchronize()
+        names, fr, good = rig_mismatch(ig, ic, "packed" if mode == "packed" else "tiled")
+        cov = float(((zg.cpu() == ZMAX) != (zc == ZMAX)).float().mean())
+        parts.append(f"{mode}: " + " ".join(f"{n}={v:.6g}" for n, v in zip(names, fr))
+                     + f" zbuf coverage={cov:.6g}, coverage {float(ig.any(-1).float().mean()):.4f}")
+        ok = ok and good and cov <= PIXEL_BUDGET
+        name = "scatter_min_u32" if mode == "packed" else "zresolve_sorted_entries"
+        expected[name] = expected.get(name, 0) + 1
+    log(f"[14e] PointCloud {scene.w}x{scene.h} card vs CPU: " + "; ".join(parts) + f" on {card}")
+    if not ok:
+        raise AssertionError("PointCloud card vs CPU: " + "; ".join(parts))
+    return expected
+
+
+def phase_sharded(scenes, settings, card: str) -> tuple:
+    """Phase 14: the multi-GPU tier on one card, with the launch counts set
+    to 0 just before and read just after; then its timing. Returns
+    (launches, {metric: value})."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    rig = build_rig(*SHARD_RIG)
+    scene_720 = next(s for s in scenes if (s.w, s.h) == POINTCLOUD_SIZE)
+    reset_launches()
+    expected = {k: 0 for k in read_launches()}
+
+    def add(counts):
+        for name, v in counts.items():
+            expected[name] += v
+
+    add(drive_sharded_rig(rig, "{}x{}x{}".format(*SHARD_RIG)))
+    node_expected, metrics = drive_sharded_node(card)
+    add(node_expected)
+    n_b5, solve_metrics = drive_sharded_solve(scene_720, settings, card)
+    expected["segsum_sorted"] += n_b5
+    metrics.update(solve_metrics)
+    n_b5, batched_metrics = drive_batched_solves(settings, card)
+    expected["segsum_sorted"] += n_b5
+    metrics.update(batched_metrics)
+    with tempfile.TemporaryDirectory() as tmp:
+        mh_expected, mh_metrics = drive_multihost(tmp, card)
+    add(mh_expected)
+    metrics.update(mh_metrics)
+    add(drive_pointcloud(scene_720, card))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[14] launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != expected {expected}")
+    metrics.update(time_sharded_rig(rig, card))
+    metrics["phase_14_s"] = time.perf_counter() - t0
+    log(f"[14] summary {json.dumps(metrics)} on {card}")
+    return launches, metrics
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run",
@@ -3511,6 +3926,12 @@ def main() -> int:
                                                                    errs)
     log(f"[13] done at {time.perf_counter() - t_start:.1f} s")
 
+    # [14] the multi-GPU tier on one card: the sharded rig and its node, the
+    # sharded and batched solves, multihost, PointCloud and the matrix
+    # solver; the launch counts cover exactly its main paths.
+    shard_launches, _ = phase_sharded((scene_848, scene_720), settings, card)
+    log(f"[14] done at {time.perf_counter() - t_start:.1f} s")
+
     # [6], [9] timing
     frame_ms = {**time_pipeline(scene_848, card), **time_pipeline(scene_720, card),
                 **time_modes(scene_848, card), **time_modes(scene_720, card)}
@@ -3535,7 +3956,7 @@ def main() -> int:
     k, p, _, b_ms, b_by = seg[f"dual {reg_scenes[-1].w}x{reg_scenes[-1].h} cloud at 0.01 m"][:5]
 
     launches = {k: fusion_launches[k] + mode_launches[k] + reg_launches[k] + rig_launches[k]
-                + filt_launches[k] for k in fusion_launches}
+                + filt_launches[k] + shard_launches[k] for k in fusion_launches}
     # No one PyTorch call computes both halves of B5 (the sums and the
     # representative); index_add_'s time for the sums alone is logged above.
     timing = {**kernel_ms, "segsum_sorted": (k, p, None, b_ms, b_by),

@@ -109,6 +109,20 @@ class Frameset:
     def width(self) -> int:
         return self.depth.shape[1]
 
+    def depth_metric(self) -> torch.Tensor:
+        """Depth in meters, float32."""
+        return self.depth.to(torch.float32) * self.depth_scale
+
+    def to_host(self) -> "HostFrameset":
+        """The frameset on the host: u16 depth, u8 color, the absolute f64
+        stamp and the depth scale."""
+        return HostFrameset(
+            depth=self.depth.cpu().numpy().astype(np.uint16),
+            color=self.color.cpu().numpy(),
+            timestamp=absolute_stamp(float(self.timestamp), float(self.timestamp_epoch)),
+            depth_scale=float(self.depth_scale),
+        )
+
 
 @dataclasses.dataclass
 class HostFrameset:

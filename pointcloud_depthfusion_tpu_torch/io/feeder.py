@@ -33,6 +33,7 @@ from pointcloud_depthfusion_tpu_torch.core.frameset import Frameset, HostFramese
 from pointcloud_depthfusion_tpu_torch.device import resolve_device
 from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene
 from pointcloud_depthfusion_tpu_torch.ops import render as R
+from pointcloud_depthfusion_tpu_torch.parallel.mesh import ShardedCameras
 from pointcloud_depthfusion_tpu_torch.runtime import render_scene_native
 
 # ---------------------------------------------------------------------------
@@ -339,26 +340,29 @@ class _AsyncFeederBase:
         self._started = False
         self._ended = False
         self.error: Optional[BaseException] = None
-        self._copy_stream = None
+        self._copy_streams: dict = {}
 
     def _run(self) -> None:  # pragma: no cover - subclass responsibility
         raise NotImplementedError
 
-    def _device_copy(self, host: Sequence[torch.Tensor], finish):
-        """``finish(*tensors)`` on ``self.device`` copies of the ``host``
-        staging tensors. On the card the copies run ``non_blocking`` on a
-        side stream and ``finish`` runs there too; the stream is fenced
+    def _device_copy(self, host: Sequence[torch.Tensor], finish, device=None):
+        """``finish(*tensors)`` on ``device`` (default ``self.device``)
+        copies of the ``host`` staging tensors. On the card the copies run
+        ``non_blocking`` on a side stream of that device and ``finish`` runs
+        there too; the stream is fenced
         before this returns (the copies have landed and the staging buffers
         are free again), and every tensor of the result is recorded on the
         device's default stream, where the consumer runs."""
-        if self.device.type != "cuda":
-            return finish(*(t.clone().to(self.device) for t in host))
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            out = finish(*(t.to(self.device, non_blocking=True) for t in host))
-        self._copy_stream.synchronize()
-        consumer = torch.cuda.default_stream(self.device)
+        device = self.device if device is None else device
+        if device.type != "cuda":
+            return finish(*(t.clone().to(device) for t in host))
+        stream = self._copy_streams.get(device)
+        if stream is None:
+            stream = self._copy_streams[device] = torch.cuda.Stream(device)
+        with torch.cuda.stream(stream):
+            out = finish(*(t.to(device, non_blocking=True) for t in host))
+        stream.synchronize()
+        consumer = torch.cuda.default_stream(device)
         for t in _tensors(out):
             t.record_stream(consumer)
         return out
@@ -610,7 +614,8 @@ class DeviceFeeder(_AsyncFeederBase):
 @dataclasses.dataclass
 class RigBatch:
     """One synchronized N-camera frame set, stacked on a leading camera
-    axis: the input shape of parallel.mesh.rig_fuse."""
+    axis: the input shape of parallel.mesh.rig_fuse, or with a mesh each
+    field a ``ShardedCameras`` (rig_fuse_sharded's)."""
 
     depth: Optional[torch.Tensor]  # (N, H, W) int32
     color: Optional[torch.Tensor]  # (N, H, W, 3) uint8, or (N, H, W) int32 when packed
@@ -631,7 +636,12 @@ class RigFeeder(_AsyncFeederBase):
     bit-identical); the planes are packed on the device after the upload.
     ``upload=False`` delivers host-only batches (the tensor fields are
     None): the machinery-isolation measurement mode.
-    ``mesh=`` (the camera-sharded upload) is not ported yet.
+
+    Given ``mesh`` (parallel.mesh.make_camera_mesh), the sources are this
+    process's cameras and each shard's cameras are uploaded to that shard's
+    device: the batch's tensors are ``ShardedCameras``, which
+    ``rig_fuse_sharded`` takes as they are. One copy per device carries
+    the cameras of all its shards.
 
     On the card the host side is staged in pinned buffers and copied with
     ``non_blocking=True`` on a side stream; the producer waits for the copy
@@ -645,6 +655,7 @@ class RigFeeder(_AsyncFeederBase):
         self,
         sources: Sequence[FramesetSource],
         mesh=None,
+        axis: str = "cam",
         sync: Optional[ApproximateTimeSyncN] = None,
         depth: int = 2,
         device=None,
@@ -652,16 +663,19 @@ class RigFeeder(_AsyncFeederBase):
         pack_color: bool = False,
         upload: bool = True,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "RigFeeder(mesh=...): the camera-sharded upload is not ported yet "
-                "(ROADMAP A15)"
-            )
         if len(sources) < 2:
             raise ValueError(f"rig needs >= 2 cameras, got {len(sources)}")
+        if mesh is not None and len(sources) % len(mesh.devices) != 0:
+            raise ValueError(
+                f"{len(sources)} cameras not divisible by the "
+                f"{mesh.shape[axis]}-device '{axis}' mesh axis"
+            )
         self.sources = list(sources)
+        self.mesh = mesh
+        self.axis = axis
         self.sync = sync or ApproximateTimeSyncN(len(sources))
-        self.device = resolve_device(device)
+        self.device = mesh.devices[0] if mesh is not None and device is None else (
+            resolve_device(device))
         self.pack_color = pack_color
         self.upload = upload
         self._staging = None
@@ -700,7 +714,19 @@ class RigFeeder(_AsyncFeederBase):
             d = d.to(torch.int32) & 0xFFFF
             return d, R.pack_rgb(c) if self.pack_color else c, s
 
-        return self._device_copy((depth, color, scale), finish)
+        if self.mesh is None:
+            return self._device_copy((depth, color, scale), finish)
+        # One copy per device of the cameras of its (consecutive) shards.
+        devs = self.mesh.devices
+        per = len(frames) // len(devs)
+        shards = []
+        for dev in dict.fromkeys(devs):
+            on = [i for i, d in enumerate(devs) if d == dev]
+            lo, hi = on[0] * per, (on[-1] + 1) * per
+            out = self._device_copy((depth[lo:hi], color[lo:hi], scale[lo:hi]), finish, dev)
+            shards += [tuple(t[(i - on[0]) * per:(i - on[0] + 1) * per] for t in out) for i in on]
+        n = len(frames) * self.mesh.n_processes
+        return tuple(ShardedCameras(tuple(sh[k] for sh in shards), n) for k in range(3))
 
     def _run(self) -> None:
         try:

@@ -1,10 +1,12 @@
 """N-camera rig fusion node: streaming ingestion + continuous calibration.
 
-Port of pointcloud_depthfusion_tpu/nodes/rig_node.py on one device. One
+Port of pointcloud_depthfusion_tpu/nodes/rig_node.py. One
 :class:`~pointcloud_depthfusion_tpu_torch.io.feeder.RigFeeder` ingests all
-cameras (N-way ApproximateTime gate, one stacked upload), one
-:func:`~pointcloud_depthfusion_tpu_torch.parallel.mesh.rig_fuse` step
-renders, and a periodic adjacent-pair registration sweep keeps the rig
+cameras (N-way ApproximateTime gate, one stacked upload, or one upload per
+shard device over a camera mesh), one
+:func:`~pointcloud_depthfusion_tpu_torch.parallel.mesh.rig_fuse` step (or
+``rig_fuse_sharded`` over the mesh) renders, and a periodic adjacent-pair
+registration sweep keeps the rig
 calibrated while it streams (the N-camera analogue of the reference's
 0.5 Hz registration service, registration_node.cpp:272-461).
 
@@ -31,7 +33,7 @@ from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics, fused_virtu
 from pointcloud_depthfusion_tpu_torch.device import resolve_device
 from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
 from pointcloud_depthfusion_tpu_torch.io.feeder import FramesetSource, RigFeeder
-from pointcloud_depthfusion_tpu_torch.parallel.mesh import rig_fuse
+from pointcloud_depthfusion_tpu_torch.parallel.mesh import rig_fuse, rig_fuse_sharded
 from pointcloud_depthfusion_tpu_torch.registration.pipeline import (
     RegistrationPipeline,
     RegistrationSettings,
@@ -41,7 +43,7 @@ from pointcloud_depthfusion_tpu_torch.utils.profiling import FpsCounter
 
 class RigFusionNodeApp:
     """Streaming N-camera fusion with optional continuous calibration, on
-    ``device`` (``None``: the card).
+    ``device`` (``None``: the card, or the mesh's first shard device).
 
     Args:
       sources: one FramesetSource per camera.
@@ -51,7 +53,9 @@ class RigFusionNodeApp:
         persisted or CAD calibration guess, cf. transform.txt,
         registration_node.cpp:742-833), refined by the registration sweep
         when ``registration_every`` > 0.
-      mesh: the camera-sharded path; not ported yet (raises).
+      mesh: optional camera mesh (parallel.mesh.make_camera_mesh): selects
+        ``rig_fuse_sharded`` and the per-shard upload, and the z-buffer
+        resolve by default (the sharded merge needs each shard's min z).
       registration_every: one adjacent-pair sweep every K fused frames (0
         disables). Each pair runs its own full RegistrationPipeline (cold
         annealing, warm starts, fitness gating, guess reset); a gated pair
@@ -70,6 +74,7 @@ class RigFusionNodeApp:
         initial_cam_to_virtual: np.ndarray,
         config: Optional[FusionConfig] = None,
         mesh=None,
+        axis: str = "cam",
         pack_color: bool = True,
         lifespan_s: Optional[float] = None,
         registration_every: int = 0,
@@ -77,18 +82,15 @@ class RigFusionNodeApp:
         registration_async: bool = True,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "RigFusionNodeApp(mesh=...): the camera-sharded rig is not ported yet "
-                "(ROADMAP A15)"
-            )
-        self.device = resolve_device(device)
+        self.device = mesh.devices[0] if mesh is not None and device is None else (
+            resolve_device(device))
         n = len(sources)
         self.n_cameras = n
-        # Image-only resolve on one device (rig_node.py:90-97).
+        # Image-only resolve on one device; the camera-sharded merge needs
+        # each shard's min z (rig_node.py:90-97).
         self.config = (config or FusionConfig.create(
             vertical_image=False, mirror_image=False, filter_fused_color=False,
-            emit_zbuf=False, device=self.device,
+            emit_zbuf=mesh is not None, device=self.device,
         )).to(self.device)
         self.intrinsics = intrinsics
         self.registration_every = registration_every
@@ -105,10 +107,14 @@ class RigFusionNodeApp:
         if registration_every:
             self._ensure_pair_pipes()
 
-        self.feeder = RigFeeder(sources, pack_color=pack_color, lifespan_s=lifespan_s,
-                                device=self.device)
-        self._fuse = rig_fuse(intrinsics, self.fused_intrinsics, self.config,
-                              device=self.device)
+        self.feeder = RigFeeder(sources, mesh=mesh, axis=axis, pack_color=pack_color,
+                                lifespan_s=lifespan_s, device=self.device)
+        if mesh is not None:
+            self._fuse = rig_fuse_sharded(mesh, intrinsics, self.fused_intrinsics, self.config,
+                                          axis=axis)
+        else:
+            self._fuse = rig_fuse(intrinsics, self.fused_intrinsics, self.config,
+                                  device=self.device)
         self._fused_subs: List[Callable[[np.ndarray, List[float]], None]] = []
         self._transform_subs: List[Callable[[np.ndarray], None]] = []
         self.fps_counter = FpsCounter(name="rig_fusion/fps")

@@ -19,8 +19,10 @@ every :data:`DONE_CHECK_EVERY` iterations and stops at
 ``min(max_iterations, iteration_cap)``. No other host sync happens inside a
 solve. All math is f32 with TF32 off; the 6×6 solve runs in f64.
 
-``solver="matrix"`` (the JAX package's readability oracle) is not ported
-(ROADMAP A13).
+``solver="matrix"`` (the JAX package's readability oracle) runs the
+batched-tensor loop with ``direct1``; it shares the planar loop's update
+and host loop. The point-sharded solve (registration/distributed.py) runs
+the planar loop with a shard sum.
 """
 
 from __future__ import annotations
@@ -236,29 +238,87 @@ def _check_neighbor_search(name: str) -> None:
         )
 
 
-def _solve_planar(
-    src_ds, src_mask, src_cov, tgt_rows, tgt_coords, resolution, table_size: int,
-    initial_transform, config: GICPConfig, max_dist,
-) -> GICPResult:
-    """Gauss-Newton VGICP loop in structure-of-arrays form (the JAX
-    package's ``_solve_planar``): every per-point quantity is an (M,)
-    plane; the K neighbor probes of ``direct7``/``direct27`` run as one
-    batched (K, M) pass, and the 27 normal-equation terms reduce in one
-    sum over neighbors and points."""
+def _gn_update(h, g, n_corr, fit_num, transform, prev_fitness, done, it_count, prev_n_corr,
+               config: GICPConfig):
+    """One damped Gauss-Newton update and the exit tests, shared by both
+    solvers: the step from (H, g), the fitness from the correspondence
+    count and the fitness numerator. Past convergence the step is a no-op
+    and the converging iteration's fitness and count are kept (the JAX
+    loop has stopped)."""
+    f = torch.float32
+    delta_raw = -_solve_6x6(h, g, config.damping)
+    # A non-finite step is zeroed and must not read as convergence.
+    step_finite = torch.isfinite(delta_raw).all()
+    delta = torch.where(done | ~step_finite, 0.0, delta_raw)
+    new_transform = G.mm(G.se3_exp(delta), transform)
+
+    fitness = torch.where(
+        n_corr > 0, fit_num / torch.clamp_min(n_corr.to(f), 1.0), FLT_MAX
+    )
+    rot_step = torch.linalg.vector_norm(delta[3:])
+    trans_step = torch.linalg.vector_norm(delta[:3])
+    fitness_ok = fitness < 1e10
+    change = torch.abs(prev_fitness - fitness)
+    plateau = (config.fitness_rel_eps > 0) & fitness_ok & (change < config.fitness_rel_eps * fitness)
+    newly_done = (
+        ((rot_step < config.rotation_eps) & (trans_step < config.translation_eps)
+         & step_finite & (n_corr > 0))
+        | (fitness_ok & (change < config.fitness_eps))
+        | plateau
+    ) & ~done
+    it_count = torch.where(done, it_count, it_count + 1)
+    fitness_out = torch.where(done, prev_fitness, fitness)
+    n_corr_out = torch.where(done, prev_n_corr, n_corr)
+    # Zero correspondences exits too; the result reports it unconverged.
+    done = done | newly_done | (n_corr == 0)
+    return new_transform, fitness_out, done, it_count, n_corr_out
+
+
+def _gn_loop(step, initial_transform, config: GICPConfig, dev) -> GICPResult:
+    """The host loop of both solvers: ``step`` until ``min(max_iterations,
+    iteration_cap)``, the converged flag read every DONE_CHECK_EVERY
+    iterations."""
+    f = torch.float32
+    transform = initial_transform.to(device=dev, dtype=f)
+    fitness = torch.tensor(float("inf"), dtype=f, device=dev)
+    done = torch.tensor(False, device=dev)
+    it_count = torch.tensor(0, dtype=torch.int32, device=dev)
+    n_corr = torch.tensor(0, dtype=torch.int32, device=dev)
+    limit = min(config.max_iterations, config.iteration_cap)
+    for i in range(1, limit + 1):
+        transform, fitness, done, it_count, n_corr = step(transform, fitness, done, it_count, n_corr)
+        if i % DONE_CHECK_EVERY == 0 and i < limit and bool(done):
+            break
+    return GICPResult(
+        transform=transform,
+        fitness=fitness,
+        converged=done & (n_corr > 0),  # a no-correspondence exit is a failure
+        iterations=it_count,
+        num_correspondences=n_corr,
+    )
+
+
+def _planar_sums(src_ds, src_mask, src_cov, tgt_rows, tgt_coords, resolution, table_size: int,
+                 config: GICPConfig, max_dist):
+    """``sums(transform)`` of one cloud (or shard): the 27 normal-equation
+    sums (27,), the correspondence count and the fitness numerator, with
+    every per-point quantity an (M,) plane; the K neighbor probes of
+    ``direct7``/``direct27`` run as one batched (K, M) pass."""
     f = torch.float32
     dev = src_ds.device
     offs = torch.tensor(_NEIGHBOR_OFFSETS[config.neighbor_search], dtype=torch.int32, device=dev)
     ox, oy, oz = offs[:, 0:1], offs[:, 1:2], offs[:, 2:3]
-    h_index = torch.tensor(_H_INDEX, dtype=torch.int64, device=dev)
-    h_sign = torch.tensor(_H_SIGN, dtype=f, device=dev)
     sx, sy, sz = src_ds[:, 0], src_ds[:, 1], src_ds[:, 2]
     cs11, cs12, cs13 = src_cov[:, 0, 0], src_cov[:, 0, 1], src_cov[:, 0, 2]
     cs22, cs23, cs33 = src_cov[:, 1, 1], src_cov[:, 1, 2], src_cov[:, 2, 2]
+    resolution, max_dist = resolution.to(dev), max_dist.to(dev)
+    kernel_width = config.kernel_width.to(dev)
     max_d2 = max_dist * max_dist
-    rbf_den = torch.clamp_min(config.kernel_width ** 2, 1e-12)
-    use_rbf = config.kernel_width > 0
+    rbf_den = torch.clamp_min(kernel_width ** 2, 1e-12)
+    use_rbf = kernel_width > 0
 
-    def step(transform, prev_fitness, done, it_count, prev_n_corr):
+    def sums(transform):
+        transform = transform.to(dev)
         r00, r01, r02 = transform[0, 0], transform[0, 1], transform[0, 2]
         r10, r11, r12 = transform[1, 0], transform[1, 1], transform[1, 2]
         r20, r21, r22 = transform[2, 0], transform[2, 1], transform[2, 2]
@@ -334,57 +394,110 @@ def _solve_planar(
             q11, q12, q13, q22, q23, q33,
             vx, vy, vz, my * vz - mz * vy, mz * vx - mx * vz, mx * vy - my * vx,
         ])
-        sums = (w * terms).sum(dim=(1, 2))
-        n_corr = corr.sum(dtype=torch.int32)
-        fit_num = (dist2 * corr.to(f)).sum()
+        return ((w * terms).sum(dim=(1, 2)), corr.sum(dtype=torch.int32),
+                (dist2 * corr.to(f)).sum())
 
+    return sums
+
+
+def _solve_planar(
+    src_ds, src_mask, src_cov, tgt_rows, tgt_coords, resolution, table_size: int,
+    initial_transform, config: GICPConfig, max_dist, shard_sum=None,
+) -> GICPResult:
+    """Gauss-Newton VGICP loop in structure-of-arrays form (the JAX
+    package's ``_solve_planar``): the 27 normal-equation terms of every
+    point (:func:`_planar_sums`) reduce in one sum over neighbors and
+    points.
+
+    ``shard_sum`` is the point-sharded solve's reduction, the counterpart
+    of the JAX package's ``axis_name`` (registration/distributed.py): the
+    source planes and the target table are then sequences with one entry
+    per shard, each on its shard's device, and ``shard_sum`` takes the
+    shards' (sums, correspondence count, fitness numerator) and returns
+    their totals on the first shard's device, where the step runs."""
+    if shard_sum is None:
+        src_ds, src_mask, src_cov, tgt_rows, tgt_coords = (
+            (t,) for t in (src_ds, src_mask, src_cov, tgt_rows, tgt_coords))
+    shard_sums = [
+        _planar_sums(*shard, resolution, table_size, config, max_dist)
+        for shard in zip(src_ds, src_mask, src_cov, tgt_rows, tgt_coords)
+    ]
+    dev = src_ds[0].device
+    h_index = torch.tensor(_H_INDEX, dtype=torch.int64, device=dev)
+    h_sign = torch.tensor(_H_SIGN, dtype=torch.float32, device=dev)
+
+    def step(transform, prev_fitness, done, it_count, prev_n_corr):
+        parts = [sums(transform) for sums in shard_sums]
+        sums, n_corr, fit_num = parts[0] if shard_sum is None else shard_sum(parts)
         h = sums[h_index] * h_sign
         g = -sums[21:27]
-        delta_raw = -_solve_6x6(h, g, config.damping)
-        # A non-finite step is zeroed and must not read as convergence.
-        step_finite = torch.isfinite(delta_raw).all()
-        delta = torch.where(done | ~step_finite, 0.0, delta_raw)
-        new_transform = G.mm(G.se3_exp(delta), transform)
+        return _gn_update(h, g, n_corr, fit_num, transform, prev_fitness, done, it_count,
+                          prev_n_corr, config)
 
-        fitness = torch.where(
-            n_corr > 0, fit_num / torch.clamp_min(n_corr.to(f), 1.0), FLT_MAX
-        )
-        rot_step = torch.linalg.vector_norm(delta[3:])
-        trans_step = torch.linalg.vector_norm(delta[:3])
-        fitness_ok = fitness < 1e10
-        change = torch.abs(prev_fitness - fitness)
-        plateau = (config.fitness_rel_eps > 0) & fitness_ok & (change < config.fitness_rel_eps * fitness)
-        newly_done = (
-            ((rot_step < config.rotation_eps) & (trans_step < config.translation_eps)
-             & step_finite & (n_corr > 0))
-            | (fitness_ok & (change < config.fitness_eps))
-            | plateau
-        ) & ~done
-        # Past convergence the step is a no-op: the JAX loop has stopped.
-        it_count = torch.where(done, it_count, it_count + 1)
-        fitness_out = torch.where(done, prev_fitness, fitness)
-        n_corr_out = torch.where(done, prev_n_corr, n_corr)
-        # Zero correspondences exits too; the result reports it unconverged.
-        done = done | newly_done | (n_corr == 0)
-        return new_transform, fitness_out, done, it_count, n_corr_out
+    return _gn_loop(step, initial_transform, config, dev)
 
-    transform = initial_transform.to(device=dev, dtype=f)
-    fitness = torch.tensor(float("inf"), dtype=f, device=dev)
-    done = torch.tensor(False, device=dev)
-    it_count = torch.tensor(0, dtype=torch.int32, device=dev)
-    n_corr = torch.tensor(0, dtype=torch.int32, device=dev)
-    limit = min(config.max_iterations, config.iteration_cap)
-    for i in range(1, limit + 1):
-        transform, fitness, done, it_count, n_corr = step(transform, fitness, done, it_count, n_corr)
-        if i % DONE_CHECK_EVERY == 0 and i < limit and bool(done):
-            break
-    return GICPResult(
-        transform=transform,
-        fitness=fitness,
-        converged=done & (n_corr > 0),  # a no-correspondence exit is a failure
-        iterations=it_count,
-        num_correspondences=n_corr,
-    )
+
+def _solve_matrix(
+    src_ds, src_mask, src_cov, tgt_rows, tgt_coords, resolution, table_size: int,
+    initial_transform, config: GICPConfig, max_dist,
+) -> GICPResult:
+    """The batched-tensor Gauss-Newton loop (``solver="matrix"``, the JAX
+    package's direct1 readability oracle): per point a 3×3 combined
+    covariance, its inverse and the 3×6 Jacobian, reduced to H and g by
+    einsum. The same correspondences, step and exit tests as the planar
+    loop, in another f32 association order."""
+    f = torch.float32
+    dev = src_ds.device
+    eye3 = torch.eye(3, dtype=f, device=dev)
+    max_d2 = max_dist * max_dist
+    rbf_den = torch.clamp_min(config.kernel_width ** 2, 1e-12)
+    use_rbf = config.kernel_width > 0
+
+    def lookup(moved):
+        coords = V.voxel_coords(moved, resolution)
+        idx = V.hash_coords(coords, table_size).to(torch.int64)
+        rows = tgt_rows[idx]
+        found = (rows[:, 0] >= config.min_voxel_points) & (tgt_coords[idx] == coords).all(-1)
+        c6 = rows[:, 4:10]
+        cov = torch.stack([
+            torch.stack([c6[:, 0], c6[:, 1], c6[:, 2]], -1),
+            torch.stack([c6[:, 1], c6[:, 3], c6[:, 4]], -1),
+            torch.stack([c6[:, 2], c6[:, 4], c6[:, 5]], -1),
+        ], -2)
+        return rows[:, 1:4], cov, found
+
+    def step(transform, prev_fitness, done, it_count, prev_n_corr):
+        r_mat = transform[:3, :3]
+        moved = G.mm(src_ds, r_mat.T) + transform[:3, 3]  # (M, 3)
+        mu, cov_t, found = lookup(moved)
+        resid = mu - moved
+        dist2 = (resid * resid).sum(-1)
+        corr = src_mask & found & (dist2 <= max_d2)
+
+        # Combined covariance C = C_t + R C_s Rᵀ and its weight W = C⁻¹.
+        cov_c = cov_t + G.mm(G.mm(r_mat, src_cov), r_mat.T)
+        w_mat = _inv3x3(cov_c + 1e-6 * eye3)
+        rbf = torch.where(use_rbf, torch.exp(-0.5 * dist2 / rbf_den), 1.0)
+        wgt = corr.to(f) * rbf
+
+        # dr/dξ = [-I | [Rp+t]×] (3×6), left perturbation ξ = (ρ, φ).
+        px, py, pz = moved[:, 0], moved[:, 1], moved[:, 2]
+        zeros = torch.zeros_like(px)
+        skew = torch.stack([
+            torch.stack([zeros, -pz, py], -1),
+            torch.stack([pz, zeros, -px], -1),
+            torch.stack([-py, px, zeros], -1),
+        ], -2)
+        jac = torch.cat([-eye3.expand(skew.shape), skew], -1)  # (M, 3, 6)
+        wj = G.mm(w_mat, jac)
+        h = torch.einsum("nij,nik,n->jk", jac, wj, wgt)
+        g = torch.einsum("nij,ni,n->j", wj, resid, wgt)
+        n_corr = corr.sum(dtype=torch.int32)
+        fit_num = (dist2 * corr.to(f)).sum()
+        return _gn_update(h, g, n_corr, fit_num, transform, prev_fitness, done, it_count,
+                          prev_n_corr, config)
+
+    return _gn_loop(step, initial_transform, config, dev)
 
 
 def prep_source(source_points, source_valid, config: GICPConfig):
@@ -427,17 +540,21 @@ def gicp_register_prepared(
     """:func:`gicp_register` against a prebuilt target grid
     (:func:`prepare_target`)."""
     _check_neighbor_search(config.neighbor_search)
-    if config.solver != "planar":
-        raise NotImplementedError(
-            f"solver={config.solver!r} is not ported; the port runs the planar solver "
-            "(ROADMAP A13)"
+    if config.solver == "planar":
+        solve = _solve_planar
+    elif config.neighbor_search != "direct1":
+        raise ValueError(
+            "multi-voxel neighbor_search requires the planar solver "
+            "(the matrix loop is the direct1 readability oracle)"
         )
+    else:
+        solve = _solve_matrix
     src_ds, src_mask, src_cov = prep_source(source_points, source_valid, config)
     max_dist = torch.where(
         config.kernel_max_dist > 0, config.kernel_max_dist, 3.0 * config.resolution
     )
     rows, coords = pack_target_table(tgt_grid)
-    return _solve_planar(
+    return solve(
         src_ds, src_mask, src_cov, rows, coords, tgt_grid.resolution, tgt_grid.table_size,
         initial_transform, config, max_dist,
     )

@@ -49,6 +49,10 @@ class StageTimer:
         self.laps: Dict[str, float] = {}
         self._t = time.perf_counter()
 
+    def reset(self) -> None:
+        self.laps = {}
+        self._t = time.perf_counter()
+
     def lap(self, name: str, *fence: torch.Tensor) -> float:
         cards = {t.device for t in fence if t.is_cuda}
         for dev in cards:
@@ -126,3 +130,16 @@ class FpsCounter:
                 self.sink(msg)
             return msg
         return None
+
+
+def get_current_rss_bytes() -> int:
+    """Resident set size (Utils.h GetCurrentRSS equivalent); 0 where
+    /proc is not there."""
+    try:
+        with open("/proc/self/statm") as fh:
+            pages = int(fh.read().split()[1])
+        import resource  # noqa: PLC0415
+
+        return pages * resource.getpagesize()
+    except Exception:  # noqa: BLE001 - no /proc: report nothing
+        return 0

@@ -240,8 +240,12 @@ def test_config_from_jax_arrays_and_unported_paths(clouds):
     assert tc == dataclasses.replace(tc) and tc.iteration_cap == 7
     assert tc.table_size == 1 << 13 and float(tc.fitness_rel_eps) == np.float32(5e-3)
     src, sv, tgt, tv = (_t(a) for a in clouds)
-    with pytest.raises(NotImplementedError, match="A13"):
-        TGI.gicp_register(src, sv, tgt, tv, torch.eye(4), dataclasses.replace(tc, solver="matrix"))
+    matrix = TGI.gicp_register(src, sv, tgt, tv, torch.eye(4),
+                               dataclasses.replace(tc, solver="matrix"))
+    assert bool(torch.isfinite(matrix.transform).all()) and int(matrix.iterations) >= 1
+    with pytest.raises(ValueError, match="planar"):
+        TGI.gicp_register(src, sv, tgt, tv, torch.eye(4),
+                          dataclasses.replace(tc, solver="matrix", neighbor_search="direct7"))
     with pytest.raises(ValueError, match="neighbor_search"):
         TGI.gicp_register(src, sv, tgt, tv, torch.eye(4),
                           dataclasses.replace(tc, neighbor_search="direct5"))

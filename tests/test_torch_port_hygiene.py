@@ -35,7 +35,8 @@ def test_port_imports_no_jax():
               "utils.profiling", "io.artifacts", "ops.cuda.morph_cuda", "ops.host_filters",
               "nodes.camera_node", "nodes.fusion_node", "nodes.registration_node",
               "nodes.image_node", "nodes.launch", "utils.factory", "runtime.bindings",
-              "io.recorded", "io.encoded", "io.network", "io.realsense_host", "nodes.demo"):
+              "io.recorded", "io.encoded", "io.network", "io.realsense_host", "nodes.demo",
+              "parallel.multihost", "registration.distributed", "core.pointcloud"):
         assert f"pointcloud_depthfusion_tpu_torch.{m}" in mods, m
     with open(REPO / "pyproject.toml", "rb") as fh:
         scripts = sorted(v for k, v in tomllib.load(fh)["project"]["scripts"].items()
@@ -57,6 +58,64 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+#: Public names of the JAX package that the port leaves out by design: the
+#: Pallas kernels (csrc/ replaces them), the XLA compile cache, the traced
+#: ROI helper, and the ``Array`` alias of jax.Array.
+JAX_ONLY_MODULES = ("ops/pallas/", "utils/compile_cache.py")
+JAX_ONLY_NAMES = {("ops/filters.py", "roi_mask_traced")}
+
+
+def _public_names(path: pathlib.Path) -> set:
+    """Module-level public functions, classes and assignments of a source
+    file, and the public methods of its public classes ("Cls.meth")."""
+    import ast
+
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and not node.name.startswith("_"):
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                out |= {f"{node.name}.{sub.name}" for sub in node.body
+                        if isinstance(sub, ast.FunctionDef) and not sub.name.startswith("_")}
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            out |= {t.id for t in targets if isinstance(t, ast.Name) and not t.id.startswith("_")}
+    return out - {"Array"}
+
+
+def test_port_has_every_public_name_of_the_jax_package():
+    """Every public name of every JAX module (read from its source, never
+    imported) has a counterpart in the port's module of the same path, but
+    the TPU-only ones above; so does every lazy export of its __init__."""
+    import ast
+    import importlib
+
+    jax_pkg = REPO / "pointcloud_depthfusion_tpu"
+    missing = []
+    for path in sorted(jax_pkg.rglob("*.py")):
+        rel = path.relative_to(jax_pkg).as_posix()
+        if rel.startswith(JAX_ONLY_MODULES) or path.name == "__init__.py":
+            continue
+        mod = "pointcloud_depthfusion_tpu_torch." + rel[:-3].replace("/", ".")
+        try:
+            port = importlib.import_module(mod)
+        except ModuleNotFoundError:
+            missing.append(rel)
+            continue
+        for name in sorted(_public_names(path)):
+            obj = port
+            for part in name.split("."):
+                obj = getattr(obj, part, None)
+            if obj is None and (rel, name) not in JAX_ONLY_NAMES:
+                missing.append(f"{rel}:{name}")
+    init = ast.parse((jax_pkg / "__init__.py").read_text())
+    exports = next(ast.literal_eval(n.value) for n in init.body
+                   if isinstance(n, ast.Assign) and n.targets[0].id == "_EXPORTS")
+    port_pkg = importlib.import_module("pointcloud_depthfusion_tpu_torch")
+    missing += [f"__init__:{n}" for n in sorted(exports) if getattr(port_pkg, n, None) is None]
+    assert not missing, missing
 
 
 def _refuse_build():
@@ -91,13 +150,15 @@ def test_cpu_pipeline_never_builds_kernels(monkeypatch):
 
 def test_cpu_rig_never_builds_kernels(monkeypatch):
     """Every rig path on CPU tensors (tiled with and without the z-buffer,
-    multi-stream, packed, the color filters, batched) runs the plain
-    versions and counts no launch."""
+    multi-stream, packed, the color filters, batched, sharded over a CPU
+    mesh) runs the plain versions and counts no launch."""
     from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
     from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig
     from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene, rig_arc_poses
     from pointcloud_depthfusion_tpu_torch.ops.cuda import filters_cuda, zresolve_cuda
-    from pointcloud_depthfusion_tpu_torch.parallel.mesh import batched_rig_fuse, rig_fuse
+    from pointcloud_depthfusion_tpu_torch.parallel.mesh import (
+        batched_rig_fuse, make_camera_mesh, rig_fuse, rig_fuse_sharded,
+    )
 
     monkeypatch.setattr(_build, "load", _refuse_build)
     counters = (zresolve_cuda.launches, filters_cuda.launches)
@@ -117,6 +178,9 @@ def test_cpu_rig_never_builds_kernels(monkeypatch):
         assert batched_rig_fuse(intr, intr, cfg, 2, 2, device="cpu")(
             depth.reshape(2, 2, 24, 32), color.reshape(2, 2, 24, 32, 3), scale.reshape(2, 2),
             c2v.reshape(2, 2, 4, 4)).shape == (2, 24, 32, 3)
+        if zbuf and not multi:
+            assert rig_fuse_sharded(make_camera_mesh(2, device="cpu"), intr, intr, cfg)(
+                depth, color, scale, c2v).shape == (24, 32, 3)
     assert counters == before
 
 

@@ -19,7 +19,7 @@ from pointcloud_depthfusion_tpu.utils.profiling import FpsCounter as JFpsCounter
 from pointcloud_depthfusion_tpu_torch.io.feeder import FramesetSource, RigFeeder
 from pointcloud_depthfusion_tpu_torch.io.synthetic import SyntheticScene, rig_arc_poses
 from pointcloud_depthfusion_tpu_torch.nodes.rig_node import RigFusionNodeApp
-from pointcloud_depthfusion_tpu_torch.parallel.mesh import rig_fuse
+from pointcloud_depthfusion_tpu_torch.parallel.mesh import make_camera_mesh, rig_fuse
 from pointcloud_depthfusion_tpu_torch.utils.profiling import FpsCounter
 from torch_rig_common import arc_sources, small_intrinsics
 
@@ -120,12 +120,15 @@ def _node_run(package, start):
 
 
 def test_rig_mesh_raises():
+    """A camera mesh whose shards do not divide the cameras raises in the
+    feeder and in the node (the sharded paths themselves:
+    tests/test_torch_sharded_merge.py)."""
     intr = small_intrinsics()
-    with pytest.raises(NotImplementedError, match="A15"):
-        RigFeeder(arc_sources(2, intr), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        RigFusionNodeApp(arc_sources(2, intr), intr, np.eye(4)[None].repeat(2, 0),
-                         mesh=object(), device="cpu")
+    mesh = make_camera_mesh(2, device="cpu")
+    with pytest.raises(ValueError, match="not divisible"):
+        RigFeeder(arc_sources(3, intr), mesh=mesh)
+    with pytest.raises(ValueError, match="not divisible"):
+        RigFusionNodeApp(arc_sources(3, intr), intr, np.eye(4)[None].repeat(3, 0), mesh=mesh)
 
 
 def test_rig_node_streams_and_recalibrates():
