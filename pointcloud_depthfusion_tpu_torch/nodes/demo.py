@@ -66,9 +66,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         choices=["", "tiled", "exact", "indexed", "packed", "pallas"],
                         help="override the configured render mode")
     parser.add_argument("--async-readback", action="store_true", default=None,
-                        help="overlap frame N's device->host copy with frame N+1's compute "
-                        "(publishes one frame late; the streaming default; flags override "
-                        "the YAML)")
+                        help="read the fused image back through a pinned host buffer, "
+                        "with a wait that releases the GIL (the streaming default; flags "
+                        "override the YAML)")
     parser.add_argument("--no-async-readback", dest="async_readback", action="store_false")
     parser.add_argument("--source-left", default="",
                         help="recorded .npz dataset for the left camera (camera_node --out); "
@@ -179,7 +179,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             frame_times.append(time.perf_counter() - t1)
             if i + 1 >= args.frames:
                 break
-    fusion.flush_pending()  # publish the last in-flight frame
     # stop() writes what the YAML asks for (the profiling CSV, the saved
     # transform).
     registration.stop()

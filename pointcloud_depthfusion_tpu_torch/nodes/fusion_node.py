@@ -37,40 +37,28 @@ from pointcloud_depthfusion_tpu_torch.utils.profiling import FpsCounter, StageLo
 
 
 class _Readback:
-    """Double-buffered device→host copies of the fused image.
+    """The fused image's device→host copy through a pinned host buffer.
 
-    :meth:`start` copies frame N into one of two pinned host buffers with
-    ``non_blocking=True`` on the current stream and records an event;
-    :meth:`finish` waits for that event and returns a copy of the buffer.
-    The node finishes frame N before it starts frame N+2, so a buffer is
-    never refilled while its copy is in flight. (A ``non_blocking`` copy
-    into pageable memory would be synchronous.) On the CPU the image is
-    already on the host: it is handed through."""
+    :meth:`copy` copies the image into the buffer with ``non_blocking=True``
+    on the current stream, records an event, waits for it (the wait
+    releases the GIL, so the feeder thread keeps capturing) and returns a
+    copy of the buffer. A ``non_blocking`` copy into pageable memory would
+    be synchronous. On the CPU the image is already on the host: it is
+    handed through."""
 
     def __init__(self):
-        self._bufs: list = []
-        self._next = 0
+        self._buf: Optional[torch.Tensor] = None
 
-    def start(self, image: torch.Tensor):
+    def copy(self, image: torch.Tensor) -> np.ndarray:
         if not image.is_cuda:
-            return image
-        if not self._bufs or self._bufs[0].shape != image.shape:
-            self._bufs = [torch.empty(image.shape, dtype=image.dtype, pin_memory=True)
-                          for _ in range(2)]
-        buf = self._bufs[self._next]
-        self._next ^= 1
-        buf.copy_(image, non_blocking=True)
+            return image.numpy()
+        if self._buf is None or self._buf.shape != image.shape:
+            self._buf = torch.empty(image.shape, dtype=image.dtype, pin_memory=True)
+        self._buf.copy_(image, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return buf, event
-
-    @staticmethod
-    def finish(handle) -> np.ndarray:
-        if isinstance(handle, torch.Tensor):
-            return handle.numpy()
-        buf, event = handle
         event.synchronize()
-        return buf.numpy().copy()
+        return self._buf.numpy().copy()
 
 
 class FusionNodeApp:
@@ -92,10 +80,13 @@ class FusionNodeApp:
         lifespan_s: Optional[float] = None,
         pack_color: bool = False,
     ):
-        """``async_readback=True``: frame N's device→host copy runs while
-        frame N+1 computes, and frame N is published then, one frame late
-        (``run()`` drains the last one through :meth:`flush_pending`;
-        callers of :meth:`process_pair` call it themselves). Ignored while
+        """``async_readback=True``: the fused image comes back through a
+        pinned host buffer, with a non-blocking copy and an event wait that
+        releases the GIL, instead of a blocking copy into pageable memory.
+        In both modes frame N is published when its copy lands, before
+        :meth:`process_pair` returns, as the upstream node publishes right
+        after its device→host copy (the JAX node publishes one frame late
+        and drains the last one at the end of the stream). Ignored while
         stage profiling is on.
 
         ``donate`` is accepted and has no effect, as in FusionPipeline.
@@ -167,8 +158,6 @@ class FusionNodeApp:
         self.save_data_dir = save_data_dir
         self.async_readback = async_readback
         self._readback = _Readback()
-        # (readback handle, stamp, pair, frame index) awaiting publication
-        self._pending: Optional[tuple] = None
         self._last_sync_time: Optional[float] = None
 
     # -- dynamic reconfiguration ------------------------------------------
@@ -248,12 +237,12 @@ class FusionNodeApp:
         for cb in self._sync_debug_subs:
             cb(msg)
 
-    def _save_data(self, pair: DevicePair, image: np.ndarray, index: Optional[int] = None) -> None:
+    def _save_data(self, pair: DevicePair, image: np.ndarray) -> None:
         """save_data dumps: both inputs and the fused output as PNGs
         (depth_frame.cpp:201-228)."""
         from pointcloud_depthfusion_tpu_torch.io.artifacts import save_png  # noqa: PLC0415
 
-        i = self.frames_processed if index is None else index
+        i = self.frames_processed
         d = self.save_data_dir
         save_png(os.path.join(d, f"{i:06d}_left_depth.png"), pair.host_left.depth)
         save_png(os.path.join(d, f"{i:06d}_left_color.png"), pair.host_left.color)
@@ -267,32 +256,17 @@ class FusionNodeApp:
         t_loop = time.perf_counter()
         self._publish_sync_debug(pair)
         profiling = self.stage_log is not None
-        if self._pending is not None and (profiling or not self.async_readback):
-            # A mode flip mid-stream publishes the in-flight frame first, so
-            # subscribers never see frames out of order.
-            prev, self._pending = self._pending, None
-            self._publish_ready(prev)
         laps = {}
         if profiling:
             laps["callback"] = (time.perf_counter() - t_loop) * 1e3
             with self._transform_lock:
                 result, stage_laps, image = self.pipeline.process_profiled(pair.left, pair.right)
             laps.update(stage_laps)
-        elif self.async_readback:
-            with self._transform_lock:
-                result = self.pipeline.process(pair.left, pair.right)
-            handle = self._readback.start(result.image)  # start frame N's copy
-            prev, self._pending = self._pending, (
-                handle, float(pair.host_left.timestamp), pair, self.frames_processed)
-            self.frames_processed += 1
-            if prev is not None:
-                self._publish_ready(prev)
-            self.fps_counter.tick()
-            return result
         else:
             with self._transform_lock:
                 result = self.pipeline.process(pair.left, pair.right)
-            image = result.image.cpu().numpy()
+            image = (self._readback.copy(result.image) if self.async_readback
+                     else result.image.cpu().numpy())
         stamp = float(pair.host_left.timestamp)
         t_pub = time.perf_counter()
         for cb in self._fused_subs:
@@ -314,20 +288,10 @@ class FusionNodeApp:
         self.frames_processed += 1
         return result
 
-    def _publish_ready(self, pending: tuple) -> None:
-        """Publish a frame whose copy had a frame of compute to overlap."""
-        handle, stamp, pair, index = pending
-        image = self._readback.finish(handle)
-        for cb in self._fused_subs:
-            cb(image, stamp)
-        if self.save_data_dir:
-            self._save_data(pair, image, index=index)
-
     def flush_pending(self) -> None:
-        """Publish the last in-flight frame (end-of-stream drain)."""
-        if self._pending is not None:
-            pending, self._pending = self._pending, None
-            self._publish_ready(pending)
+        """The JAX node's end-of-stream drain of its one-frame-late image.
+        Here every frame is published before :meth:`process_pair` returns,
+        so nothing is in flight and there is nothing to drain."""
 
     def run(self, max_frames: Optional[int] = None) -> int:
         """Consume the feeder until end of stream (or ``max_frames``)."""
@@ -336,7 +300,6 @@ class FusionNodeApp:
                 self.process_pair(pair)
                 if max_frames is not None and self.frames_processed >= max_frames:
                     break
-        self.flush_pending()
         if self.stage_log:
             self.stage_log.flush()
         return self.frames_processed

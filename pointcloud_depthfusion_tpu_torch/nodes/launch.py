@@ -320,7 +320,6 @@ def _run_dual(cameras, fusion_section, reg_section, reg_every, sink, fused, max_
             done += 1
             if max_frames and done >= max_frames:
                 break
-    fusion.flush_pending()
     if registration is not None:
         registration.stop()
     return done, registration

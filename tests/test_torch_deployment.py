@@ -135,18 +135,21 @@ def _node(tmp_path, async_readback, n=4, **kw):
 
 
 def test_fusion_node_async_readback_and_profiling_publish_the_same_frames(tmp_path):
-    """One frame late with async readback, the same frames in the same
+    """Every mode publishes frame k while process_pair(k) runs (the async
+    readback through its pinned buffer too), the same frames in the same
     order; the profiling mode logs the stage CSV and the save_data mode
-    dumps PNGs."""
+    dumps the same PNGs."""
     runs = {}
-    for name, kw in (("sync", dict(async_readback=False)),
+    for name, kw in (("sync", dict(async_readback=False, save_data_dir=str(tmp_path / "sync"))),
                      ("async", dict(async_readback=True, save_data_dir=str(tmp_path / "save"))),
                      ("profiled", dict(async_readback=True,
                                        profiling_path=str(tmp_path / "prof.csv")))):
         app, out = _node(tmp_path, **kw)
-        msgs = []
+        msgs, published_in = [], []
         app.subscribe_sync_debug(msgs.append)
+        app.subscribe_fused(lambda img, ts, app=app: published_in.append(app.frames_processed))
         assert app.run() == 4 and len(msgs) == 4
+        assert published_in == [0, 1, 2, 3]  # before the call that made it returns
         runs[name] = out
     assert [t for t, _ in runs["sync"]] == [k / 30.0 for k in range(4)]
     for name in ("async", "profiled"):
@@ -154,6 +157,9 @@ def test_fusion_node_async_readback_and_profiling_publish_the_same_frames(tmp_pa
         for (_, a), (_, b) in zip(runs[name], runs["sync"]):
             np.testing.assert_array_equal(a, b)
     assert len(os.listdir(tmp_path / "save")) == 4 * 5
+    assert sorted(os.listdir(tmp_path / "save")) == sorted(os.listdir(tmp_path / "sync"))
+    for f in os.listdir(tmp_path / "sync"):
+        assert (tmp_path / "save" / f).read_bytes() == (tmp_path / "sync" / f).read_bytes()
     rows = (tmp_path / "prof.csv").read_text().splitlines()
     assert rows[0].split(",") == FUSION_STAGE_FIELDS and len(rows) == 5
 
