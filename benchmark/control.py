@@ -6,9 +6,11 @@ float32), judged by the same comparison as a run.
 
 For each seed it renders the cell's frame pool, hands every camera the
 frames of two pool periods in order, draws the run's number of sampled
-frames from the seed, and prints the widest image mismatch share of the
-bfloat16 reference against the float32 one: the upper reading of the
-cell's limit. The benchmark's own runs never run it.
+frames from the seed, and judges the bfloat16 reference's outputs against
+the float32 one's by the cell's comparison (the driver's ``compare``, or
+the image mismatch share): it prints one control reading per number
+compared, the upper reading of that number's limit. The benchmark's own
+runs never run it.
 """
 
 import argparse
@@ -19,20 +21,25 @@ import sys
 import types
 
 
-def control(cell_name: str, seed: int, device, config_hook=None) -> float:
+def control(cell_name: str, seed: int, device, config_hook=None, repo=None,
+            bench=None) -> dict:
+    """``{name: the control's reading}`` for each number the cell's check
+    compares, on one seed; ``repo`` and ``bench`` locate a checkout."""
     import torch  # noqa: PLC0415
 
     from benchmark import harness  # noqa: PLC0415
     from benchmark.scene.render import render_pool  # noqa: PLC0415
     from benchmark.traffic.generator import load_mix  # noqa: PLC0415
 
-    manifest = harness.load_manifest()
+    repo = repo or harness.REPO_DIR
+    bench = bench or harness.BENCH_DIR
+    manifest = harness.load_manifest(repo)
     cell = next(w for w in manifest["workloads"] if w["name"] == cell_name)
-    config = harness.load_config(manifest, cell["config"])
+    config = harness.load_config(manifest, cell["config"], repo)
     if config_hook is not None:
         config = config_hook(config)
-    mix = load_mix(cell["traffic"])
-    driver = harness.driver_module(config["driver"])
+    mix = load_mix(cell["traffic"], bench / "traffic")
+    driver = harness.driver_module(config["driver"], bench)
     pool = render_pool(config, int(mix["pool_frames"]), seed, device)
     frames = 2 * pool["depth"].shape[1]
     handed = list(range(-int(mix["warmup_frames"]), frames))
@@ -41,7 +48,8 @@ def control(cell_name: str, seed: int, device, config_hook=None) -> float:
     ks = sorted(random.Random(seed).sample(range(frames), harness.SAMPLE_IMAGES))
     exact = driver.reference_images(config, pool, rec, ks, device)
     low = driver.reference_images(config, pool, rec, ks, device, dtype=torch.bfloat16)
-    return max(harness.image_mismatch_share(low[k], exact[k]) for k in ks)
+    checks, _ = harness.check_outputs(driver, low, exact, config, pool)
+    return {name: c["value"] for name, c in checks.items()}
 
 
 def main(argv=None) -> int:
@@ -56,9 +64,10 @@ def main(argv=None) -> int:
         print("the control runs on the card", file=sys.stderr)
         return 2
     for seed in (int(s) for s in args.seeds.split(",")):
-        share = control(args.workload, seed, torch.device("cuda", 0))
+        readings = control(args.workload, seed, torch.device("cuda", 0))
         print(json.dumps({"workload": args.workload, "seed": seed,
-                          "control_image_mismatch_share": share}), flush=True)
+                          **{f"control_{name}": v for name, v in readings.items()}}),
+              flush=True)
     return 0
 
 

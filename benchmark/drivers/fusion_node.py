@@ -75,8 +75,7 @@ def build(config: dict, pool: dict, rec, device, make_source):
     def close():
         app.feeder.stop()
 
-    return types.SimpleNamespace(sources=sources, kernels=frame_kernels(config),
-                                 held=1 if f["async_readback"] else 0, run=app.run,
+    return types.SimpleNamespace(sources=sources, kernels=frame_kernels(config), run=app.run,
                                  close=close, drops=drops)
 
 

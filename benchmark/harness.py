@@ -4,19 +4,45 @@ Everything that belongs to one configuration, traffic mix or metric is a
 file of its own, found by the name the manifest gives:
 
 - ``configs/<config>.json``: the deployment as run (sizes, node settings,
-  the host's heap, scene, the limits of the output check); its ``driver``
-  names ``drivers/<driver>.py``, which builds the node on the benchmark's
-  cameras and works out its reference images;
+  the host's heap, the rig, the scene, and under ``check`` the limit of
+  every number the output check compares); its ``driver`` names
+  ``drivers/<driver>.py``;
 - ``traffic/<mix>.json``: the mix's parameters, read by
   ``traffic/generator.py``;
 - ``metrics/<metric>.py``: the metric's reader, ``read(record)``, which
   returns a number or None (nothing to read: the metric is left out), and
   its ``UNIT``, ``MOVES`` and ``TRACE`` (whether it reads the traced run).
 
+The configuration's ``rig`` places its cameras (``scene/render.py``'s
+``camera_poses``: a ``pair`` or an ``arc`` of any number), and the pool
+holds a stream per camera. A driver is a module with:
+
+- ``host_frameset()``: the class a camera source wraps each frame in;
+- ``build(config, pool, rec, device, make_source)``: the node under test on
+  ``make_source(intrinsics, camera)`` for each camera, publishing each
+  output (an image, a transform) with its frame's stamp through
+  ``rec.on_image``, each before the call that made it returns; it returns
+  an object with ``sources``, ``kernels`` (name and bytes a launch, for
+  the roofline), ``run()``, ``drops()`` and ``close()``;
+- ``reference_images(config, pool, rec, frames, device, dtype=float32)``:
+  ``{frame: the plain reference's output}``, computed without the program,
+  in ``dtype`` for the control;
+- optionally ``compare(got, ref, config, pool) -> {name: float}``: the
+  numbers the output check compares, ``got`` and ``ref`` being the sampled
+  frames' published and reference outputs (either may be empty), ``pool``
+  the rendered inputs and their truth (``poses``, ``centers``). Without it
+  the check is :func:`compare_images`. The names compared are those that
+  ``config["check"]`` gives limits, no more and no fewer.
+
+So a new configuration brings its ``configs/<config>.json``, a driver (or
+uses one there is), the driver's plain reference under ``reference/``, a
+traffic mix where none fits, a reader per new metric, and the entries in
+``BENCHMARK.json``; no file that is there changes.
+
 A run: render the cell's frame pool on the device from the seed, move it to
 host memory, hand it to the node through the traffic's camera sources, warm
 up, open the window for ``seconds``, close it, read the memory peak, free
-the node, then compare a seeded sample of the published images with the
+the node, then compare a seeded sample of the published outputs with the
 plain reference.
 """
 
@@ -102,7 +128,7 @@ class Record:
         self.seed, self.t_start, self.tracing = seed, t_start, tracing
         self.sources: list = []
         self.published: Dict[int, float] = {}
-        self.samples: Dict[int, np.ndarray] = {}
+        self.samples: Dict[int, object] = {}
         self.spans: Dict[str, list] = {}
         self.process_end: Dict[int, float] = {}
         self.warm_images = 0
@@ -128,10 +154,11 @@ class Record:
         cut = self.span_cut if self.span_cut is not None else self.clock.t_end
         return [v for t, v in self.spans.get(name, ()) if t0 <= t < cut]
 
-    # images
+    # outputs
 
-    def on_image(self, image: np.ndarray, stamp: float) -> None:
-        """The subscriber: every fused image the node publishes."""
+    def on_image(self, image, stamp: float) -> None:
+        """The subscriber: every output the node publishes (a fused image,
+        a transform), with the stamp of the frame it came from."""
         t = time.perf_counter()
         self.last_image_t = t
         k = self.clock.frame_of(stamp)
@@ -215,15 +242,14 @@ class Record:
 # -- running a cell ------------------------------------------------------------
 
 
-def _open_when_warm(rec: Record, held: int, stop: threading.Event) -> None:
+def _open_when_warm(rec: Record, stop: threading.Event) -> None:
     """Open the window once the warm-up is through: every warm-up image
-    published (but the ``held`` ones the node keeps back), or the cameras
-    done and the node quiet for 0.5 s (warm-up pairs dropped)."""
+    published, or the cameras done and the node quiet for 0.5 s (warm-up
+    pairs dropped)."""
     clock = rec.clock
-    target = clock.warmup - held
     while not stop.is_set() and clock.t0 is None:
         done = rec.sources[0].next_k >= 0  # the first camera waits for the window
-        if rec.warm_images >= target or (
+        if rec.warm_images >= clock.warmup or (
                 done and time.perf_counter() - rec.last_image_t > 0.5):
             clock.open()
             return
@@ -276,7 +302,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device, t_s
     rec.sources = node.sources
     rec.kernels = node.kernels
     stop = threading.Event()
-    opener = threading.Thread(target=_open_when_warm, args=(rec, node.held, stop), daemon=True)
+    opener = threading.Thread(target=_open_when_warm, args=(rec, stop), daemon=True)
     opener.start()
     try:
         node.run()
@@ -305,18 +331,44 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device, t_s
     t_ref = time.perf_counter()
     pool.update(depth=depth16.to(device).to(torch.int32) & 0xFFFF, color=color.to(device))
     refs = driver.reference_images(config, pool, rec, sorted(rec.samples), device)
-    worst = 0.0
-    for k, img in rec.samples.items():
-        got = torch.from_numpy(np.ascontiguousarray(img)).to(refs[k].device)
-        worst = max(worst, image_mismatch_share(got, refs[k]))
-    limit = float(config["check"]["image_mismatch_share"])
-    checks = {"image_mismatch_share": {"value": worst, "limit": limit}}
-    correct = worst <= limit and bool(rec.samples)
+    checks, correct = check_outputs(driver, rec.samples, refs, config, pool)
     return {
-        "correct": bool(correct), "attempted": len(frames), "failed": failed,
+        "correct": correct, "attempted": len(frames), "failed": failed,
         "metrics": values, "memory_peak_bytes": int(memory_peak), "checks": checks,
         "record": rec, "reference_s": time.perf_counter() - t_ref,
     }
+
+
+# -- the output check ------------------------------------------------------------
+
+
+def check_outputs(driver, got: dict, ref: dict, config: dict, pool: dict) -> tuple:
+    """The driver's comparison (:func:`compare_images` where it defines
+    none) of the sampled outputs ``got`` with the reference's ``ref``.
+    Returns ``({name: {"value", "limit"}}, correct)``: correct when there
+    are samples and every number is within its limit. A number without a
+    limit in ``config["check"]``, or a limit no number meets, raises."""
+    values = getattr(driver, "compare", compare_images)(got, ref, config, pool)
+    limits = config.get("check", {})
+    if set(values) != set(limits):
+        raise KeyError(f"the check compares {sorted(values)} but the configuration "
+                       f"gives limits for {sorted(limits)}")
+    checks = {name: {"value": float(v), "limit": float(limits[name])}
+              for name, v in values.items()}
+    correct = bool(got) and bool(checks) and all(c["value"] <= c["limit"]
+                                                  for c in checks.values())
+    return checks, correct
+
+
+def compare_images(got: dict, ref: dict, config: dict, pool: dict) -> dict:
+    """The check of a node that publishes images: the widest share of
+    mismatched pixels over the sampled frames (0.0 with no samples)."""
+    worst = 0.0
+    for k, img in got.items():
+        if not isinstance(img, torch.Tensor):  # the node's, in host memory
+            img = torch.from_numpy(np.ascontiguousarray(img))
+        worst = max(worst, image_mismatch_share(img.to(ref[k].device), ref[k]))
+    return {"image_mismatch_share": worst}
 
 
 def image_mismatch_share(got: torch.Tensor, ref: torch.Tensor) -> float:

@@ -10,6 +10,20 @@ toolchain, the card, the heap settings and the generator's lateness go to
 standard error before it, and the checks once more as its last lines. Exits non-zero,
 with no result, without enough CUDA devices, or when JAX or the JAX
 package was loaded.
+
+Everything is found by the names in ``BENCHMARK.json``. A new configuration
+comes as new files and new entries alone: ``configs/<config>.json`` (its
+sizes, its ``rig`` of a ``pair`` or an ``arc`` of N cameras, the scene, the
+``driver`` it uses and under ``check`` the limit of each number compared),
+``drivers/<driver>.py`` where no driver fits (``host_frameset()``,
+``build(...)`` of the node on the benchmark's cameras,
+``reference_images(...)`` of the plain reference's outputs and, where the
+outputs are not images, ``compare(got, ref, config, pool) -> {name:
+float}``), its plain reference under ``reference/``, ``traffic/<mix>.json``
+where no mix fits, ``metrics/<metric>.py`` for each new metric, and the
+``configs``, ``workloads`` and metric entries of ``BENCHMARK.json``.
+``harness.py``'s docstring gives the driver's calls in full;
+``control.py`` reads the control of a cell's check.
 """
 
 import time

@@ -35,12 +35,24 @@ def yaw_pose(x_off: float, yaw_deg: float) -> np.ndarray:
 
 
 def camera_poses(geometry: dict) -> List[np.ndarray]:
-    """Camera->world poses of a rig description: ``{"kind": "pair",
-    "baseline_m", "toe_in_deg"}`` (left at -baseline/2, right at
-    +baseline/2, both toed in)."""
+    """Camera->world poses of a rig description, one per camera:
+
+    - ``{"kind": "pair", "baseline_m", "toe_in_deg"}``: left at
+      -baseline/2, right at +baseline/2, both toed in;
+    - ``{"kind": "arc", "cameras", "span_m", "toe_in_deg_per_m"}``: N >= 2
+      cameras spread along x over ``span_m``, camera i at
+      ``x = span_m * (i / (N - 1) - 0.5)`` and yawed by
+      ``-toe_in_deg_per_m * x`` degrees, so the rig converges.
+    """
     if geometry["kind"] == "pair":
         b, toe = geometry["baseline_m"], geometry["toe_in_deg"]
         return [yaw_pose(-b / 2, +toe), yaw_pose(+b / 2, -toe)]
+    if geometry["kind"] == "arc":
+        n, span, toe = int(geometry["cameras"]), geometry["span_m"], geometry["toe_in_deg_per_m"]
+        if n < 2:
+            raise ValueError(f"an arc rig needs 2 cameras or more, not {n}")
+        xs = [span * (i / (n - 1) - 0.5) for i in range(n)]
+        return [yaw_pose(x, -toe * x) for x in xs]
     raise ValueError(f"unknown rig kind {geometry['kind']!r}")
 
 

@@ -38,14 +38,20 @@ def shrink(config: dict, size=SMALL) -> dict:
 
 
 def run_small(cell: str, seed: int = 987654321012, seconds: float = 1.0, trace: bool = False,
-              repo=None, **kw) -> dict:
+              repo=None, hook=None, **kw) -> dict:
     """One run of ``cell`` at the small size on the CPU, from ``repo`` (a
-    :func:`checkout`) or this one."""
+    :func:`checkout`) or this one; ``hook`` rewrites the shrunk
+    configuration."""
     torch.set_num_threads(2)
     if repo is not None:
         kw.update(repo=repo, bench=repo / "benchmark")
+
+    def small(config):
+        config = shrink(config)
+        return hook(config) if hook else config
+
     return harness.run_cell(cell, seed, seconds, trace, torch.device("cpu"),
-                            time.perf_counter(), config_hook=shrink, **kw)
+                            time.perf_counter(), config_hook=small, **kw)
 
 
 # -- faults ---------------------------------------------------------------------
