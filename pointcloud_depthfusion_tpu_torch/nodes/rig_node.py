@@ -233,9 +233,8 @@ class RigFusionNodeApp:
         for cb in self._fused_subs:
             cb(out, batch.timestamps)
         self.frames_processed += 1
-        msg = self.fps_counter.tick()
-        if msg:
-            print(msg, flush=True)
+        # The FPS line goes to the counter's sink, not to stdout.
+        self.fps_counter.tick()
         return out
 
     def _maybe_sweep(self, batch) -> None:

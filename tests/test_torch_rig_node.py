@@ -193,6 +193,24 @@ def test_rig_node_fuses_what_rig_fuse_fuses():
     assert app.feeder.dropped_stale == 0
 
 
+def test_rig_node_leaves_the_fps_line_to_the_counter(capsys):
+    """process_batch writes nothing to stdout, as FusionNodeApp: it ticks
+    its counter, which hands each report to its sink."""
+    n = 3
+    intr = small_intrinsics(64, 48, 50.0)
+    poses = np.stack(rig_arc_poses(n, toe_in_deg_per_m=37.5)).astype(np.float32)
+    app = RigFusionNodeApp(arc_sources(n, intr), intr, poses, device="cpu")
+    app.fps_counter.report_every_s = 0.0
+    lines = []
+    app.fps_counter.sink = lines.append
+    with app.feeder as feeder:
+        for _ in range(2):
+            app.process_batch(feeder.get(timeout=30.0))
+    assert capsys.readouterr().out == ""
+    assert len(lines) == 2 and app.frames_processed == 2
+    assert json.loads(lines[-1]).keys() == {"rig_fusion/fps", "lastCurrMSec"}
+
+
 def test_fps_counter_reports_like_jax():
     """The node's FPS message: the JAX package's keys, once per window."""
     got = FpsCounter("rig_fusion/fps", report_every_s=0.0).tick()
