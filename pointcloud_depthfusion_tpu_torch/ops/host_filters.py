@@ -5,10 +5,13 @@ A device round trip per frame costs more than these filters, so the
 camera node runs them on the host, value for value as ``ops.filters``
 computes them. The spatial and decimation filters dispatch to the native
 host runtime (``runtime``, the port's copy of the C++ filter bank) when it
-loads, as the JAX package's do; their numpy versions
-(``_spatial_filter_numpy``, ``_decimation_filter_numpy``) are the plain
-versions, value-identical to the native ones. The card machine's times
-for both are in PERF.md §5 (``chip_smoke.py`` phase 13e). The holes_fill
+loads, as the JAX package's do, and so does the temporal step, which the
+port adds to that library (``csrc/host/temporal.cpp``); their numpy
+versions (``_spatial_filter_numpy``, ``_decimation_filter_numpy``,
+``_temporal_filter_numpy``) are the plain versions, value-identical to the
+native ones. The card machine's times
+for the spatial and decimation filters are in PERF.md §5 (``chip_smoke.py``
+phase 13e). The holes_fill
 rule is this module's own copy (the JAX package reads it from its
 ``ops.filters``, which imports jax).
 """
@@ -130,6 +133,40 @@ def _spatial_filter_numpy(depth: np.ndarray, alpha: float = 0.55, delta: float =
     if integer_domain:
         return np.clip(x, 0, 65535).astype(depth.dtype)
     return x
+
+
+def temporal_runs_native(dtype) -> bool:
+    """Whether :func:`temporal_filter_np` takes the native step for frames of
+    ``dtype``: u16 depth and f32 disparity, when the runtime loads."""
+    return dtype in (np.uint16, np.float32) and _native() is not None
+
+
+def temporal_filter_np(data: np.ndarray, prev: np.ndarray, alpha: float = 0.4,
+                       delta: float = 20.0) -> np.ndarray:
+    """One temporal EMA step (see filters.temporal_filter) of ``data``
+    against the history ``prev`` (same shape and dtype): the blend where
+    both have depth within ``delta``, the history over a hole; integer
+    depth rounds half to even. A fresh array, which becomes the history."""
+    if temporal_runs_native(data.dtype):
+        return runtime.temporal_filter_native(data, prev, alpha, delta)
+    return _temporal_filter_numpy(data, prev, alpha, delta)
+
+
+def _temporal_filter_numpy(data: np.ndarray, prev: np.ndarray, alpha: float,
+                           delta: float) -> np.ndarray:
+    cur = data.astype(np.float32)
+    prev_f = prev.astype(np.float32)
+    have_both = (cur > 0) & (prev_f > 0)
+    close = np.abs(cur - prev_f) <= delta
+    out = np.where(
+        have_both & close,
+        alpha * cur + (1.0 - alpha) * prev_f,
+        cur,
+    )
+    out = np.where((cur == 0) & (prev_f > 0), prev_f, out)
+    if np.issubdtype(data.dtype, np.integer):
+        out = np.clip(np.rint(out), 0, 65535)
+    return out.astype(data.dtype)
 
 
 def depth_to_disparity_np(depth_u16: np.ndarray, depth_scale: float, fx: float,

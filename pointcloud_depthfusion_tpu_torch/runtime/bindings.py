@@ -1,13 +1,15 @@
-"""ctypes bindings for the native host runtime (``csrc/host/pdf_runtime.cpp``).
+"""ctypes bindings for the native host runtime (``csrc/host/pdf_runtime.cpp``
+and ``csrc/host/temporal.cpp``).
 
 A copy of pointcloud_depthfusion_tpu/runtime/bindings.py over the port's own
-copy of the C++ source. The library is built by g++ at first use into
+copy of the C++ source, with the port's temporal step built into the same
+library. The library is built by g++ at first use into
 ``build/host_runtime/<hash>/libpdf_runtime.so`` beside the package: the hash
-covers the source, the flags and what the compiler makes of
+covers the sources, the flags and what the compiler makes of
 ``-march=native`` on this host, so a changed source, compiler or CPU never
 loads a stale library. The flags are those of ``runtime/Makefile``;
-``-ffp-contract=off`` is load-bearing: without it the spatial filter's f32
-blends contract into FMAs and stop matching the numpy versions.
+``-ffp-contract=off`` is load-bearing: without it the spatial and temporal
+filters' f32 blends contract into FMAs and stop matching the numpy versions.
 
 The compiler is the first of ``$CXX`` and g++ on ``$PATH`` that has
 OpenMP. A missing compiler or a failed build raises from
@@ -32,6 +34,9 @@ import numpy as np
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = PACKAGE_DIR / "csrc" / "host" / "pdf_runtime.cpp"
+#: Every source of the library: the byte copy of the JAX runtime, then the
+#: port's own.
+SOURCES = (SOURCE, PACKAGE_DIR / "csrc" / "host" / "temporal.cpp")
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "host_runtime"
 CXX_FLAGS = ["-O3", "-march=native", "-Wall",
              "-ffp-contract=off", "-std=c++17", "-fPIC", "-fopenmp", "-shared"]
@@ -88,7 +93,9 @@ def _run(cmd: List[str]) -> str:
 
 
 def _digest(cxx: str) -> str:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     # The compiler's version and its -march=native expansion on this host.
     h.update(_run([cxx, "-march=native", "-E", "-v", "-x", "c++", os.devnull,
@@ -102,7 +109,7 @@ def _compile(cxx: str, target: pathlib.Path) -> str:
     # same time never loads a half-written library.
     with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
         lib = os.path.join(tmp, target.name)
-        log = _run([cxx, *CXX_FLAGS, "-o", lib, str(SOURCE)])
+        log = _run([cxx, *CXX_FLAGS, "-o", lib, *map(str, SOURCES)])
         os.replace(lib, target)
     return log
 
@@ -144,6 +151,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     u16p = ctypes.POINTER(ctypes.c_uint16)
     lib.pdf_decimation_u16.argtypes = [u16p, u16p, i, i, i]
     lib.pdf_decimation_u16.restype = None
+
+    for name in ("pdf_temporal_step_u16", "pdf_temporal_step_f32"):
+        getattr(lib, name).argtypes = [p, p, p, ctypes.c_int64, f, f, f]
+        getattr(lib, name).restype = None
     return lib
 
 
@@ -263,6 +274,28 @@ def decimation_filter_native(depth_u16: np.ndarray, magnitude: int = 2) -> np.nd
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
         h, w, m,
     )
+    return out
+
+
+def temporal_filter_native(data: np.ndarray, prev: np.ndarray, alpha: float = 0.4,
+                           delta: float = 20.0) -> np.ndarray:
+    """One pass of the temporal EMA step over ``data`` (u16 depth or f32
+    disparity) against ``prev`` of the same shape and dtype, value-identical
+    to ``ops.host_filters._temporal_filter_numpy``; a fresh array. The
+    constants are numpy's: f32(alpha), f32(1 - alpha) subtracted in f64,
+    f32(delta)."""
+    if data.dtype not in (np.uint16, np.float32):
+        raise ValueError(f"the native temporal step takes uint16 or float32, not {data.dtype}")
+    if prev.dtype != data.dtype or prev.shape != data.shape:
+        raise ValueError(f"history {prev.dtype}{prev.shape} does not match frame "
+                         f"{data.dtype}{data.shape}")
+    lib = load_library()
+    cur = np.ascontiguousarray(data)
+    old = np.ascontiguousarray(prev)
+    out = np.empty(cur.shape, cur.dtype)
+    step = lib.pdf_temporal_step_u16 if cur.dtype == np.uint16 else lib.pdf_temporal_step_f32
+    step(cur.ctypes.data, old.ctypes.data, out.ctypes.data, cur.size,
+         alpha, 1.0 - alpha, delta)
     return out
 
 
