@@ -1,6 +1,7 @@
 """The port's dual deployment tier on the CPU: FusionPipeline's profiled
-mode, DeviceFeeder, FusionNodeApp, and ``launch.run_deployment`` against
-the JAX package's on one manifest."""
+mode, FusionNodeApp, and ``launch.run_deployment`` against the JAX
+package's on one manifest (DeviceFeeder's own tests are in
+tests/test_torch_feeder.py)."""
 
 import os
 
@@ -13,9 +14,8 @@ import pointcloud_depthfusion_tpu_torch.runtime as torch_runtime
 from pointcloud_depthfusion_tpu.nodes import image_node as JImg
 from pointcloud_depthfusion_tpu.nodes import launch as JL
 from pointcloud_depthfusion_tpu_torch.core.camera import Intrinsics
-from pointcloud_depthfusion_tpu_torch.core.frameset import HostFrameset, pack_rgb24_host
 from pointcloud_depthfusion_tpu_torch.fusion.pipeline import FusionConfig, FusionPipeline
-from pointcloud_depthfusion_tpu_torch.io.feeder import DeviceFeeder, FramesetSource, SyntheticSource
+from pointcloud_depthfusion_tpu_torch.io.feeder import FramesetSource, SyntheticSource
 from pointcloud_depthfusion_tpu_torch.io.synthetic import (
     SyntheticScene,
     right_to_left_transform,
@@ -93,33 +93,6 @@ def test_process_profiled_refuses_pallas():
                           device="cpu")
     with pytest.raises(NotImplementedError, match="packed"):
         pipe.process_profiled(None, None)
-
-
-def test_device_feeder_pairs_uploads_and_errors():
-    intr = _intr()
-    (left, right), _ = _streams(3, intr)
-    right = right[:1] + [HostFrameset(f.depth, f.color, f.timestamp + 0.5) for f in right[1:2]] \
-        + right[2:]  # the second right frame is 0.5 s late: unpaired
-    with DeviceFeeder(_Replay(left, intr), _Replay(right, intr), device="cpu",
-                      pack_color=True) as feeder:
-        pairs = list(feeder)
-    assert [p.host_left.timestamp for p in pairs] == [0.0, 2 / 30]
-    for p in pairs:
-        for fs, host in ((p.left, p.host_left), (p.right, p.host_right)):
-            assert fs.depth.dtype == torch.int32
-            np.testing.assert_array_equal(fs.depth.numpy(), host.depth.astype(np.int32))
-            np.testing.assert_array_equal(fs.color.numpy(), host.color)
-            np.testing.assert_array_equal(fs.color_packed.numpy(), pack_rgb24_host(host.color))
-            assert float(fs.timestamp) == pytest.approx(host.timestamp, abs=1e-6)
-    with DeviceFeeder(_Replay(left, intr), _Replay(left, intr), device="cpu",
-                      upload=False) as feeder:
-        assert all(p.left is None and p.right is None for p in feeder)
-    small = HostFrameset(left[0].depth[::2, ::2], left[0].color, 0.0)  # decimated depth
-    feeder = DeviceFeeder(_Replay([small], intr), _Replay([small], intr), device="cpu")
-    with pytest.raises(RuntimeError, match="producer failed") as err:
-        feeder.get(timeout=10.0)
-    assert "size mismatch" in str(err.value.__cause__)
-    feeder.stop()
 
 
 def _node(tmp_path, async_readback, n=4, **kw):
