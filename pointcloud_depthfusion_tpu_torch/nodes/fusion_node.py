@@ -41,7 +41,7 @@ class _Readback:
 
     :meth:`copy` copies the image into the buffer with ``non_blocking=True``
     on the current stream, records an event, waits for it (the wait
-    releases the GIL, so the feeder thread keeps capturing) and returns a
+    releases the GIL, so the feeder's threads keep capturing) and returns a
     copy of the buffer. A ``non_blocking`` copy into pageable memory would
     be synchronous. On the CPU the image is already on the host: it is
     handed through."""

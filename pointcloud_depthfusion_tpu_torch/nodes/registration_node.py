@@ -54,9 +54,11 @@ class RegistrationNodeApp:
         camera_right.subscribe_frameset(lambda fs: self._on_frameset(1, fs))
 
     def _on_frameset(self, stream: int, fs: HostFrameset) -> None:
-        # Under the lock: captures arrive on whatever thread drives the
-        # cameras (the fusion feeder's) while tick() reads on another, and
-        # the pairer is not thread-safe.
+        # Under the lock: captures arrive on each camera's own thread (the
+        # fusion feeder's capture threads), in the order they finish, while
+        # tick() reads on another, and the pairer is not thread-safe. The
+        # pairer takes the globally closest pair, so a camera's frame that
+        # arrives before the other's frame of its moment still pairs with it.
         with self._lock:
             for fl, fr in self.pairer.push(stream, fs):
                 self._latest = (fl.depth, fr.depth, fl.depth_scale, fr.depth_scale)

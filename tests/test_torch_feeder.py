@@ -4,6 +4,8 @@ The behaviours the faces share are one test each over ``dual`` and
 ``rig``; the pair's Framesets are held field by field to
 ``Frameset.create`` of their host frames."""
 
+import sys
+import threading
 import time
 
 import numpy as np
@@ -12,12 +14,16 @@ import torch
 
 from pointcloud_depthfusion_tpu_torch.core.frameset import Frameset, HostFrameset, split_stamp
 from pointcloud_depthfusion_tpu_torch.io.feeder import (
+    ApproximateTimePairer,
+    ApproximateTimeSyncN,
     DeviceFeeder,
     DevicePair,
     FramesetSource,
     RigFeeder,
     SyntheticSource,
+    _Capture,
 )
+from pointcloud_depthfusion_tpu_torch.io.recorded import RecordedSource, record_dataset
 from torch_rig_common import FiniteSource, arc_sources, small_intrinsics
 
 FACES = ("dual", "rig")
@@ -214,3 +220,332 @@ def test_feeder_end_of_stream_pushes_the_last_round(face):
         items = list(feeder)
     assert [[f.timestamp for f in _hosts(item)] for item in items] == [[0.1, 0.09]]
     assert feeder.get() is None
+
+
+# -- the capture threads ------------------------------------------------------
+
+
+def _serial(sync, sources):
+    """The sets a serial capture loop emits: camera 0's next frame, then
+    camera 1's, ..., round by round, until the first None, then the flush."""
+    sets = []
+    while True:
+        for i, src in enumerate(sources):
+            f = src.next_frame()
+            if f is None:
+                return sets + sync.flush()
+            sets += sync.push(i, f)
+
+
+def _sync(face, n):
+    return ApproximateTimePairer() if face == "dual" else ApproximateTimeSyncN(n)
+
+
+def _face_sync(feeder):
+    return feeder.pairer if isinstance(feeder, DeviceFeeder) else feeder.sync
+
+
+def _same_sets(items, sets):
+    """The feeder's items carry the serial loop's sets, frame for frame."""
+    assert len(items) == len(sets)
+    for item, frames in zip(items, sets):
+        hosts = _hosts(item)
+        assert [f.timestamp for f in hosts] == [f.timestamp for f in frames]
+        for got, want in zip(hosts, frames):
+            np.testing.assert_array_equal(got.depth, want.depth)
+            np.testing.assert_array_equal(got.color, want.color)
+        depth, _, _ = _stacked(item)
+        np.testing.assert_array_equal(depth.numpy(), np.stack([f.depth for f in frames]))
+
+
+def _frame_lists(n, k, skip=None):
+    """k frames of each of n arc cameras, frame j stamped j/30 s plus up to
+    3 ms; ``skip=(i, j)``: camera i misses its frame j, so the other
+    cameras' frame j matches nothing and the sync drops it."""
+    rng = np.random.default_rng(n)
+    out = []
+    for i, src in enumerate(arc_sources(n, small_intrinsics())):
+        frames = [src.next_frame() for _ in range(k)]
+        for j, f in enumerate(frames):
+            f.timestamp = j / 30 + float(rng.uniform(0.0, 0.003))
+        out.append([f for j, f in enumerate(frames) if (i, j) != skip])
+    return out
+
+
+class Counted(Replay):
+    """A Replay that counts its calls and the threads that made them."""
+
+    def __init__(self, frames, intr):
+        super().__init__(frames, intr)
+        self.calls = 0
+        self.threads = set()
+
+    def next_frame(self):
+        self.calls += 1
+        self.threads.add(threading.get_ident())
+        return super().next_frame()
+
+
+FACE_N = [("dual", 2), ("rig", 2), ("rig", 3), ("rig", 4)]
+
+
+@pytest.mark.parametrize("kind", ["synthetic", "replay", "recorded"])
+@pytest.mark.parametrize("face,n", FACE_N)
+def test_feeder_emits_the_serial_loops_sets(face, n, kind, tmp_path):
+    """Captured a frame ahead on a thread per camera, the stage emits the
+    sets a serial loop over the same sources emits, in its order: jittered
+    synthetic streams, and streams (replayed and recorded) whose last
+    camera misses a frame, so the sync drops the others' frame."""
+    intr = small_intrinsics()
+
+    def sources():
+        if kind == "synthetic":
+            return arc_sources(n, intr, FiniteSource, n_frames=6, timestamp_jitter_s=0.003)
+        lists = _frame_lists(n, 6, skip=(n - 1, 2))
+        if kind == "replay":
+            return [Replay(f, intr) for f in lists]
+        paths = [str(tmp_path / f"cam{i}.npz") for i in range(n)]
+        for path, frames in zip(paths, lists):
+            record_dataset(path, frames, intr)
+        return [RecordedSource(p) for p in paths]
+
+    sync = _sync(face, n)
+    sets = _serial(sync, sources())
+    assert sets and (kind == "synthetic" or sync.dropped > 0)
+    with _feeder(face, sources()) as feeder:
+        items = list(feeder)
+    _same_sets(items, sets)
+    assert (_face_sync(feeder).emitted, _face_sync(feeder).dropped) == (sync.emitted, sync.dropped)
+    assert feeder.get() is None
+
+
+@pytest.mark.parametrize("ends", ["first", "last"])
+@pytest.mark.parametrize("face", FACES)
+def test_feeder_end_of_stream_when_one_camera_ends_first(face, ends):
+    """Camera 0 or camera N-1 ends two rounds before the others: the stage
+    delivers the serial loop's sets, then the end of stream, and no camera
+    was asked for more than two frames past the serial loop's (one left in
+    its slot, one captured after it)."""
+    n, intr = CAMERAS[face], small_intrinsics()
+    short = 0 if ends == "first" else n - 1
+    lists = _frame_lists(n, 4)
+    lists[short] = lists[short][:2]
+    serial = [Counted(f, intr) for f in lists]
+    sets = _serial(_sync(face, n), serial)
+    sources = [Counted(f, intr) for f in lists]
+    with _feeder(face, sources) as feeder:
+        items = list(feeder)
+        assert feeder.get() is None
+    _same_sets(items, sets)
+    for got, want in zip(sources, serial):
+        assert want.calls <= got.calls <= want.calls + 2
+
+
+@pytest.mark.parametrize("face", FACES)
+def test_feeder_end_of_stream_while_another_camera_blocks(face):
+    """Camera 0 ends after three frames while the other cameras block in
+    their fourth capture: the stage delivers the three sets and then the
+    end of stream, as the serial loop (which never asks them for a fourth
+    frame) would, without waiting for the blocked cameras."""
+    release = threading.Event()
+
+    class Stalls(FiniteSource):
+        def next_frame(self):
+            if self.frame_idx == 3:
+                release.wait(30.0)
+            return super().next_frame()
+
+    sources = _sources(face, Stalls, n_frames=8)
+    sources[0] = _sources(face, FiniteSource, n_frames=3)[0]
+    feeder = _feeder(face, sources).start()
+    try:
+        items = [feeder.get(timeout=10.0) for _ in range(3)]
+        assert all(item is not None for item in items)
+        assert feeder.get(timeout=10.0) is None
+    finally:
+        release.set()
+        feeder.stop()
+
+
+@pytest.mark.parametrize("broken", ["first", "last"])
+@pytest.mark.parametrize("face", FACES)
+def test_feeder_error_in_one_camera_reaches_get(face, broken):
+    """One camera's source raises on its third frame: the two sets before
+    reach the consumer, then get() raises with the source's exception."""
+    n = CAMERAS[face]
+    which = 0 if broken == "first" else n - 1
+
+    class Broken(FiniteSource):
+        def next_frame(self):
+            if self.frame_idx == 2:
+                raise OSError("camera unplugged")
+            return super().next_frame()
+
+    sources = _sources(face, FiniteSource, n_frames=8)
+    sources[which] = _sources(face, Broken, n_frames=8)[which]
+    with _feeder(face, sources, depth=4) as feeder:
+        got = [feeder.get(timeout=30.0) for _ in range(2)]
+        with pytest.raises(RuntimeError, match="producer failed") as ei:
+            feeder.get(timeout=30.0)
+    assert all(item is not None for item in got)
+    assert isinstance(ei.value.__cause__, OSError)
+
+
+@pytest.mark.parametrize("blocked", ["first", "last"])
+@pytest.mark.parametrize("face", FACES)
+def test_feeder_stop_while_a_camera_blocks_in_its_source(face, blocked):
+    """stop() while one camera's thread is blocked inside next_frame
+    returns within the 2 s join deadline, the ingest thread has ended, and
+    the camera's thread ends once its source returns."""
+    n = CAMERAS[face]
+    which = 0 if blocked == "first" else n - 1
+    entered, release = threading.Event(), threading.Event()
+
+    class Blocking(SyntheticSource):
+        def next_frame(self):
+            entered.set()
+            release.wait(30.0)
+            return super().next_frame()
+
+    sources = _sources(face)
+    sources[which] = _sources(face, Blocking)[which]
+    feeder = _feeder(face, sources).start()
+    try:
+        assert entered.wait(30.0)
+        t = time.perf_counter()
+        feeder.stop()
+        assert time.perf_counter() - t < 2.5
+        assert not feeder._thread.is_alive()
+        assert feeder.get() is None
+    finally:
+        release.set()
+    thread = feeder._capture.threads[which]
+    thread.join(timeout=10.0)
+    assert not thread.is_alive()
+
+
+@pytest.mark.parametrize("mode", ["slow_consumer", "blocking_source"])
+@pytest.mark.parametrize("face", FACES)
+def test_feeder_capture_threads_and_capture_ahead(face, mode):
+    """Each source is called from one thread of its own, neither the
+    ingest thread nor the consumer's. ``capture_ahead`` counts mostly
+    ``ready`` for instant sources behind a consumer that takes 30 ms a set
+    (once the one-set queue has filled),
+    and mostly ``waited`` for sources that block until their frame is due,
+    camera i's frame k at t0 + (k (N + 1) + i) 15 ms."""
+    n = CAMERAS[face]
+
+    class Source(FiniteSource):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.threads = set()
+            self.due = None
+
+        def next_frame(self):
+            self.threads.add(threading.get_ident())
+            if self.due is not None:
+                time.sleep(max(0.0, self.due(self.frame_idx) - time.perf_counter()))
+            return super().next_frame()
+
+    sources = _sources(face, Source, n_frames=12)
+    if mode == "blocking_source":
+        t0, step = time.perf_counter() + 0.05, 0.015
+        for i, src in enumerate(sources):
+            src.due = lambda k, i=i: t0 + (k * (n + 1) + i) * step
+    with _feeder(face, sources, depth=1) as feeder:
+        items = []
+        for item in feeder:
+            items.append(item)
+            if mode == "slow_consumer":
+                time.sleep(0.03)
+    assert len(items) == 12
+    threads = [src.threads for src in sources]
+    assert all(len(t) == 1 for t in threads)
+    idents = {next(iter(t)) for t in threads}
+    assert len(idents) == n
+    assert not idents & {feeder._thread.ident, threading.get_ident()}
+    ready, waited = feeder.capture_ahead["ready"], feeder.capture_ahead["waited"]
+    assert ready + waited == 12 * n + 1  # twelve rounds, then camera 0's end of stream
+    if mode == "slow_consumer":
+        assert ready > 2 * waited
+    else:
+        assert waited > 2 * ready
+
+
+def test_capture_threads_stress_short_switch_interval():
+    """Twelve cameras, more capture threads than cores, with the switch
+    interval shortened to interleave them often: the rig emits the serial
+    loop's sets, and every frame taken is counted once."""
+    n, intr = 12, small_intrinsics()
+    lists = _frame_lists(n, 6, skip=(5, 3))
+    sets = _serial(_sync("rig", n), [Replay(f, intr) for f in lists])
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with _feeder("rig", [Replay(f, intr) for f in lists], depth=1) as feeder:
+            items = []
+            while (item := feeder.get(timeout=30.0)) is not None:
+                items.append(item)
+    finally:
+        sys.setswitchinterval(interval)
+    _same_sets(items, sets)
+    ahead = feeder.capture_ahead
+    assert ahead["ready"] + ahead["waited"] == 5 * n + 6  # camera 5 ends its sixth round
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_capture_holds_its_slot_and_one_frame_more(n):
+    """After one round is taken, each camera puts its next frame in its
+    slot and captures the one after it at once, without waiting for the
+    slot to be taken, then waits: three calls to each source, no more.
+    (A camera that waited for its slot to be taken before calling its
+    source again would wake inside every set's staging copy.)"""
+    intr = small_intrinsics()
+    sources = [Counted(f, intr) for f in _frame_lists(n, 6)]
+    capture = _Capture(sources)
+    try:
+        first = [frames[0].timestamp for frames in _frame_lists(n, 6)]
+        assert [f.timestamp for f in capture.round()] == first
+        deadline = time.perf_counter() + 10.0
+        while any(src.calls < 3 for src in sources) and time.perf_counter() < deadline:
+            time.sleep(0.005)
+        time.sleep(0.05)
+        assert [src.calls for src in sources] == [3] * n
+        assert capture.round() and capture.ahead == {"ready": n, "waited": n}
+    finally:
+        capture.close()
+    for t in capture.threads:
+        t.join(timeout=10.0)
+        assert not t.is_alive()
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.006])
+def test_registration_pairer_under_capture_threads(jitter):
+    """The registration node's pairer, fed by both camera nodes'
+    subscriptions on their capture threads in arrival order (the switch
+    interval shortened to interleave them often), pairs the frames the
+    feeder pairs; each camera's subscribers run on one thread, its own."""
+    from pointcloud_depthfusion_tpu_torch.nodes.camera_node import CameraNode  # noqa: PLC0415
+    from pointcloud_depthfusion_tpu_torch.nodes.registration_node import (  # noqa: PLC0415
+        RegistrationNodeApp,
+    )
+
+    cams = [CameraNode(name, src, temporal_filter=False) for name, src in zip(
+        ("camera_left", "camera_right"),
+        _sources("dual", FiniteSource, n_frames=30, timestamp_jitter_s=jitter))]
+    reg = RegistrationNodeApp(*cams, device="cpu")
+    threads = [set(), set()]
+    for cam, t in zip(cams, threads):
+        cam.subscribe_frameset(lambda fs, t=t: t.add(threading.get_ident()))
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with DeviceFeeder(*cams, device="cpu", upload=False) as feeder:
+            items = list(feeder)
+    finally:
+        sys.setswitchinterval(interval)
+    assert items and (reg.pairer.emitted, reg.pairer.dropped) == (
+        feeder.pairer.emitted, feeder.pairer.dropped)
+    assert reg._latest[0] is items[-1].host_left.depth
+    assert reg._latest[1] is items[-1].host_right.depth
+    assert all(len(t) == 1 for t in threads) and threads[0] != threads[1]
